@@ -1,0 +1,35 @@
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's compute layer.
+
+Mirrors the JAX package's module names (``models/llama.py``,
+``ops/rmsnorm.py``, ``llm/engine.py``, ...) so each module's counterpart is
+easy to find. Plain tensor code is PyTorch; every op that the JAX package
+runs as a Pallas TPU kernel is a CUDA kernel written for Hopper (sources in
+``ops/csrc/``, built by ``_native/build.py`` at first use).
+
+The package imports nothing from ``ray_tpu``: what it needs of the
+framework-neutral modules it keeps as its own copies.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Never falls back to the CPU on its own — a missing card is an
+    error, and a CPU run has to be asked for (``device="cpu"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ray_tpu_torch: no CUDA device is available; pass device='cpu' "
+                "to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
