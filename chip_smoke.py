@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path.
+"""On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path
+and its training path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -7,9 +8,15 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, one JSON line each; any failing phase exits non-zero:
   1. device   — needs CUDA; the card's name and power limit; TF32 off.
-  2. build    — nvcc builds every kernel from ray_tpu_torch/ops/csrc/.
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the serving path's shapes, with its times and bound.
+  2. build    — nvcc builds every kernel from ray_tpu_torch/ops/csrc/, one
+                process per source, in parallel.
+  3. kernels  — each kernel against its plain PyTorch version on the card:
+                RMSNorm at the serving path's shapes; the three
+                flash-attention kernels (forward, backward dQ, backward
+                dK/dV) at the train bench shape, the 3B GQA head shape, a
+                ragged T and T = 1, each with a broken control (K one
+                position off, V one element off) that must fail the
+                limits; times, plain and library times, and bounds.
   4. serve    — ray_tpu_torch.llm.LLMServer serves llama3.2-3b (full depth,
                 seeded random weights) with the fused RMSNorm, greedy and
                 seeded sampled requests; kernel launch counts are reset
@@ -18,6 +25,18 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 kernel (fp32 and bf16), against the same weights in fp32
                 through the plain path on the CPU, and a broken control
                 that the bf16 limit must refuse.
+  6. train    — the JAX package's flagship train configuration (bench.py:
+                1.2B params, 16 layers, batch 4 x 2048, remat, splash
+                attention) through make_train_step: 2 warm-up and 6 timed
+                steps, finite losses, attention launch counts equal to
+                2L x steps (forward, re-run by remat) and L x steps (each
+                backward kernel), then one profiled step.
+  7. train_numerics — 2 layers at the bench width with well-conditioned
+                weights: loss and grads in bf16 on the card through the
+                kernels against fp32 on the CPU through dense attention, a
+                broken control (the kernel fed K one position off) that
+                must exceed the grad limit, and the fused cross-entropy's
+                loss against the plain one.
 Then the kernels summary line, the nvidia-smi line, and, last,
 {"ok": true, "device": {...}}.
 
@@ -28,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import sys
 import threading
 import time
@@ -92,10 +112,135 @@ def phase_kernels(torch, card: str) -> dict:
                 launches=rmsnorm.launches - before,
             )
         rows_out.append({"case": tag, **row})
-    emit({"phase": "kernels", "card": card, "rmsnorm": rows_out,
+    attention = _attention_rows(torch)
+    emit({"phase": "kernels", "card": card, "rmsnorm": rows_out, "attention": attention["rows"],
+          "attention_limits": attention["limits"],
           "timing": "kernel_us/plain_us/library_us: device time per call from a "
-                    "replayed CUDA graph; *_call_us: eager calls back to back"})
-    return {"max_abs_err": max_err, "rows": rows_out}
+                    "replayed CUDA graph; *_call_us: eager calls back to back; "
+                    "sdpa_fwd_bwd_us: eager calls, CUDA events; sdpa_bwd_us: the aten "
+                    "flash backward alone from a replayed CUDA graph"})
+    return {"max_abs_err": max_err, "rows": rows_out, "attention": attention}
+
+
+# (B, T, H, KV, D): the train bench shape, llama3.2-3b's GQA head shape at
+# the bench's batch and length, a T that is a multiple of neither the 64-
+# nor the 32-row block, and T = 1
+ATTN_CASES = [
+    ("bench", (4, 2048, 16, 16, 128), True),
+    ("gqa3b", (4, 2048, 24, 8, 128), True),
+    ("ragged", (2, 200, 4, 2, 128), False),
+    ("t1", (1, 1, 2, 1, 128), False),
+]
+
+
+def _attention_rows(torch) -> dict:
+    """The flash-attention kernels against their plain versions on the same
+    bf16 inputs (the backward from the kernel's own o and lse), with the
+    limits of ops/flash_attention.py fixed before the first run; a broken
+    control per row must fail them."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.flash_attention import (
+        MAX_ABS_LIMIT, REL_RMS_LIMIT, agreement, flash_attention, flash_attention_bwd_dkdv_kernel,
+        flash_attention_bwd_dq_kernel, flash_attention_bwd_plain, flash_attention_fwd_kernel,
+        flash_attention_fwd_plain,
+    )
+    from ray_tpu_torch.models.training import H100_BF16_DENSE_FLOPS
+    from ray_tpu_torch.tools.decode_profile import HBM_BYTES_PER_S, graph_us, timed
+
+    f = flash_attention
+
+    def kernels(q, k, v, do):
+        o, lse = flash_attention_fwd_kernel(q, k, v)
+        dq, delta = flash_attention_bwd_dq_kernel(q, k, v, o, lse, do)
+        dk, dv = flash_attention_bwd_dkdv_kernel(q, k, v, lse, delta, do)
+        return o, lse, dq, dk, dv, delta
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / H100_BF16_DENSE_FLOPS, nbytes / HBM_BYTES_PER_S
+        return {"bound_us": max(t_ops, t_bytes) * 1e6,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "flops": flops, "bytes": nbytes}
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, max_err = [], 0.0
+    for tag, (B, T, H, KV, D), measured in ATTN_CASES:
+        q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+                       for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D), (B, T, H, D)))
+        before = (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv)
+        o, lse, dq, dk, dv, delta = kernels(q, k, v, do)
+        torch.cuda.synchronize()
+        if (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv) != tuple(b + 1 for b in before):
+            raise AssertionError("the flash-attention wrappers did not launch their kernels")
+        o_p, lse_p = flash_attention_fwd_plain(q, k, v)
+        refs = dict(zip(("o", "dq", "dk", "dv"),
+                        (o_p, *flash_attention_bwd_plain(q, k, v, o, lse, do))))
+        checks = {n: agreement(x, refs[n]) for n, x in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv))}
+        lse_err = (lse - lse_p).abs().max().item()
+        # broken control: K one position off along T, V one element off along D
+        ko, vo = torch.roll(k, 1, dims=1), torch.roll(v, 1, dims=3)
+        co, _, cdq, cdk, cdv, _ = kernels(q, ko, vo, do)
+        control = {n: agreement(x, refs[n]) for n, x in zip(("o", "dq", "dk", "dv"), (co, cdq, cdk, cdv))}
+        del ko, vo, co, cdq, cdk, cdv
+        row = {"case": tag, "shape_bthkd": [B, T, H, KV, D], "lse_max_abs_err": lse_err,
+               **{f"{n}_{m}": c[m] for n, c in checks.items() for m in ("max_abs_err", "rel_rms_err")},
+               "control_rel_rms_err": {n: c["rel_rms_err"] for n, c in control.items()}}
+        bad = [n for n, c in checks.items() if not c["ok"]]
+        if bad or lse_err > 1e-4:
+            raise AssertionError(f"attention {tag}: {bad or 'lse'} outside the limits: {row}")
+        if all(c["ok"] for c in control.values()):
+            raise AssertionError(f"attention {tag}: the broken control passed the limits: {row}")
+        max_err = max(max_err, *(c["max_abs_err"] for c in checks.values()))
+        if measured:
+            npairs = T * (T + 1) // 2  # causal (query, key) pairs
+            qb, kvb, rowb = B * T * H * D * 2, B * T * KV * D * 2, B * H * T * 4
+            hd = B * H * D * npairs
+            row["fwd"] = {"kernel_us": graph_us(lambda: flash_attention_fwd_kernel(q, k, v), 20, 10),
+                          "plain_us": graph_us(lambda: flash_attention_fwd_plain(q, k, v), 3, 3),
+                          **bound(4 * hd, 2 * qb + 2 * kvb + rowb)}
+            row["bwd_dq"] = {
+                "kernel_us": graph_us(lambda: flash_attention_bwd_dq_kernel(q, k, v, o, lse, do), 20, 10),
+                **bound(6 * hd, 4 * qb + 2 * kvb + 2 * rowb)}
+            row["bwd_dkdv"] = {
+                "kernel_us": graph_us(
+                    lambda: flash_attention_bwd_dkdv_kernel(q, k, v, lse, delta, do), 20, 10),
+                **bound(8 * hd, 2 * qb + 4 * kvb + 2 * rowb)}
+            # the plain backward computes dq, dk and dv together
+            plain_bwd = graph_us(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), 2, 3)
+            row["bwd_dq"]["plain_us"] = row["bwd_dkdv"]["plain_us"] = plain_bwd
+            row["bwd_bound_us"] = bound(10 * hd, 4 * qb + 4 * kvb + 2 * rowb)["bound_us"]
+            # the library yardstick, timed here only: SDPA ([B, H, T, D] views)
+            qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+            gqa = {"enable_gqa": True} if H != KV else {}
+            row["sdpa_fwd_us"] = graph_us(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa), 20, 10)
+            leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True, **gqa)
+                torch.autograd.grad(out, leaves, dot)
+
+            row["sdpa_fwd_bwd_us"] = timed(sdpa_fwd_bwd, 10, warmup=2)[1] * 1e3
+            del leaves
+            # the library's backward alone: one aten call gives dq, dk and dv,
+            # the function of the dQ and dK/dV kernels together. Its flash
+            # backward takes equal head counts only, so the GQA row has none.
+            row["sdpa_bwd_us"] = None
+            if H == KV:
+                aten = torch.ops.aten
+                (so, slse, cq, ck, mq, mk, seed, offset,
+                 _) = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+                row["sdpa_bwd_us"] = graph_us(
+                    lambda: aten._scaled_dot_product_flash_attention_backward(
+                        dot, qt, kt, vt, so, slse, cq, ck, mq, mk, 0.0, True, seed, offset),
+                    20, 10)
+                del so, slse
+        rows.append(row)
+        del q, k, v, do, o, lse, dq, dk, dv, delta, o_p, lse_p, refs
+        torch.cuda.empty_cache()
+    limits = {"rel_rms_err": REL_RMS_LIMIT, "max_abs_err_of_max_ref": MAX_ABS_LIMIT,
+              "lse_max_abs_err": 1e-4}
+    return {"rows": rows, "limits": limits, "max_abs_err": max_err}
 
 
 def phase_serve(torch, card: str) -> dict:
@@ -261,7 +406,7 @@ def _conditioned_params(torch, cfg, seed: int) -> dict:
     from ray_tpu_torch.models.llama import _param_shapes
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    width = {"embed": cfg.d_model, "wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+    width = {"embed": cfg.d_model, "unembed": cfg.d_model, "wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
              "wo": cfg.n_heads * cfg.head_dim, "w_gate": cfg.d_model, "w_up": cfg.d_model,
              "w_down": cfg.d_ff}
     params = {}
@@ -332,6 +477,112 @@ def phase_numerics(torch, card: str) -> dict:
     return out
 
 
+def phase_train(torch, card: str) -> dict:
+    """The JAX package's flagship train configuration (bench.py:31-47),
+    value for value, through make_train_step on the card."""
+    from ray_tpu_torch.tools.train_bench import bench_config, profile_step, run
+
+    cfg = bench_config()
+    if (cfg.vocab_size, cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.max_seq_len, cfg.attention, cfg.remat, cfg.fused_ce) != (
+            32000, 2048, 16, 16, 16, 8192, 2048, "splash", True, False):
+        raise AssertionError(f"not the bench config: {cfg}")
+    out = run(cfg, batch=4, seq=2048, warmup=2, steps=6)
+    live = {k: out.pop(k) for k in ("state", "step_fn", "batch")}
+    L, steps = cfg.n_layers, out["steps"]
+    expected = {"fwd": 2 * L * steps, "bwd_dq": L * steps, "bwd_dkdv": L * steps}
+    out["launches_expected"] = expected
+    if out["launches"] != expected:
+        raise AssertionError(f"attention launches {out['launches']} != {expected}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite train loss: {out['losses']}")
+    out["profile"] = profile_step(live["step_fn"], live["state"], live["batch"])
+    emit({"phase": "train", "card": card, "model": "bench.py train config", **out})
+    del live
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_numerics(torch, card: str) -> dict:
+    """2 layers at the bench width (d_model 2048, 16 heads of 128, d_ff
+    8192, vocab 32000), batch 2 x 256, weights drawn well-conditioned on
+    the card: the loss and the grads of wq, wk, wv, wo and embed in bf16
+    on the card through the kernels, against the same weights in fp32 on
+    the CPU through dense_attention. Limits, fixed before the first run
+    from the same arithmetic in bf16 on the CPU (dense attention, widths
+    512-2048: grads 1.9-2.2e-2 relative RMS, loss 3e-5-9e-5 relative):
+    - each grad's RMS error relative to its RMS: 6e-2;
+    - the loss, relative: 1e-3;
+    - a broken control, the kernel fed K one position off (a kernel that
+      reads K one row off), must read above the grad limit (rehearsed:
+      1.2-1.4);
+    - the fused cross-entropy's loss against the plain one, both bf16 on
+      the card on the same params and batch: 1e-4 relative."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.llama import loss_fn
+    from ray_tpu_torch.ops.flash_attention import flash_attention, reset_launches
+    from ray_tpu_torch.tools.train_bench import bench_config, make_batch
+
+    grad_limit, loss_limit, fused_limit = 6e-2, 1e-3, 1e-4
+    cfg = bench_config(n_layers=2)
+    ref_cfg = dataclasses.replace(cfg, dtype=torch.float32, attention="full", remat=False)
+    params = _conditioned_params(torch, cfg, seed=2)
+    batch = make_batch(cfg, 2, 256, seed=2, device="cpu")
+    names = ("wq", "wk", "wv", "wo", "embed")
+
+    def loss_and_grads(c, device, dtype):
+        p = {k: v.detach().to(device=device, dtype=dtype).requires_grad_(True)
+             for k, v in params.items()}
+        loss = loss_fn(p, {k: t.to(device) for k, t in batch.items()}, c)
+        grads = torch.autograd.grad(loss, [p[n] for n in names])
+        if not torch.isfinite(loss):
+            raise AssertionError(f"train_numerics: non-finite loss on {device} in {dtype}")
+        return loss.item(), {n: g.float().cpu() for n, g in zip(names, grads)}
+
+    def rel_rms(a, b):
+        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+    ref_loss, ref = loss_and_grads(ref_cfg, "cpu", torch.float32)
+    reset_launches()
+    card_loss, got = loss_and_grads(cfg, "cuda", torch.bfloat16)
+    f = flash_attention
+    launches = (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv)
+    if launches != (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"train_numerics: attention launches {launches}")
+    orig = llama._attention
+    llama._attention = lambda q, k, v, c: orig(q, torch.roll(k, 1, dims=1), v, c)
+    try:
+        ctl_loss, ctl = loss_and_grads(cfg, "cuda", torch.bfloat16)
+    finally:
+        llama._attention = orig
+    with torch.no_grad():
+        p16 = {k: v.detach() for k, v in params.items()}
+        on_card = {k: t.cuda() for k, t in batch.items()}
+        plain_loss = loss_fn(p16, on_card, cfg).item()
+        fused_loss = loss_fn(p16, on_card, dataclasses.replace(cfg, fused_ce=True)).item()
+    out = {
+        "phase": "train_numerics", "card": card, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "tokens": list(batch["tokens"].shape),
+        "ref_loss": ref_loss, "bf16_loss": card_loss,
+        "loss_rel_err": abs(card_loss - ref_loss) / abs(ref_loss), "loss_limit": loss_limit,
+        "grad_rel_rms_err": {n: rel_rms(got[n], ref[n]) for n in names}, "grad_limit": grad_limit,
+        "control_loss_rel_err": abs(ctl_loss - ref_loss) / abs(ref_loss),
+        "control_grad_rel_rms_err": {n: rel_rms(ctl[n], ref[n]) for n in names},
+        "plain_ce_loss": plain_loss, "fused_ce_loss": fused_loss,
+        "fused_vs_plain_rel_err": abs(fused_loss - plain_loss) / abs(plain_loss),
+        "fused_limit": fused_limit, "attention_launches": list(launches),
+    }
+    emit(out)
+    worst = max(out["grad_rel_rms_err"].values())
+    if worst > grad_limit or out["loss_rel_err"] > loss_limit:
+        raise AssertionError(f"train_numerics: bf16 on the card outside the limits ({worst})")
+    if max(out["control_grad_rel_rms_err"].values()) <= grad_limit:
+        raise AssertionError("train_numerics: the broken control passed the grad limit")
+    if out["fused_vs_plain_rel_err"] > fused_limit:
+        raise AssertionError("train_numerics: fused and plain cross-entropy disagree")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -356,11 +607,37 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "sources": build.sources(), "ptxas": ptxas})
 
-    k = phase_kernels(torch, card)
-    serve = phase_serve(torch, card)
-    phase_numerics(torch, card)
+    timings = {}
+
+    def timed_phase(name, fn):
+        t = time.perf_counter()
+        result = fn(torch, card)
+        timings[name] = time.perf_counter() - t
+        return result
+
+    k = timed_phase("kernels", phase_kernels)
+    serve = timed_phase("serve", phase_serve)
+    torch.cuda.empty_cache()
+    timed_phase("numerics", phase_numerics)
+    train = timed_phase("train", phase_train)
+    timed_phase("train_numerics", phase_train_numerics)
+    emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
+    bench = next(r for r in k["attention"]["rows"] if r["case"] == "bench")
+    attention_kernels = [
+        ("flash_attention_fwd", "fwd", "ray_tpu/models/llama.py:334", bench["sdpa_fwd_us"]),
+        ("flash_attention_bwd_dq", "bwd_dq", "ray_tpu/models/llama.py:334", bench["sdpa_bwd_us"]),
+        ("flash_attention_bwd_dkdv", "bwd_dkdv", "ray_tpu/models/llama.py:334", bench["sdpa_bwd_us"]),
+    ]
+    # the backward pair computes one function, dq, dk and dv: its bound (10
+    # flops per causal pair and head dim, S and dP once) and its library
+    # time (one aten backward call) stand on both rows beside the per-kernel
+    # bounds, which count the S and dP that each kernel recomputes
+    bwd_pair = {"bwd_function_bound_ms": bench["bwd_bound_us"] / 1e3,
+                "bwd_pair_ms": (bench["bwd_dq"]["kernel_us"] + bench["bwd_dkdv"]["kernel_us"]) / 1e3,
+                "library_note": "aten._scaled_dot_product_flash_attention_backward: dq, dk, dv "
+                                "together, the function of both backward kernels"}
     emit({"kernels": [{
         "name": "rmsnorm",
         "route": "cuda",
@@ -373,7 +650,20 @@ def main() -> int:
         "bound_ms": decode["bound_us"] / 1e3,
         "bound_by": "bytes",
         "library_ms": decode["library_us"] / 1e3 if decode["library_us"] is not None else None,
-    }]})
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": replaces,
+        "launches": train["launches"][key],
+        "max_abs_err": k["attention"]["max_abs_err"],
+        "ms": bench[key]["kernel_us"] / 1e3,
+        "plain_ms": bench[key]["plain_us"] / 1e3,
+        "bound_ms": bench[key]["bound_us"] / 1e3,
+        "bound_by": bench[key]["bound_by"],
+        "library_ms": lib_us / 1e3 if lib_us is not None else None,
+        **(bwd_pair if key.startswith("bwd") else {}),
+    } for name, key, replaces, lib_us in attention_kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

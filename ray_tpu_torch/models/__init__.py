@@ -1,19 +1,27 @@
-"""ray_tpu_torch.models — the Llama decoder in PyTorch (serving half)."""
+"""ray_tpu_torch.models — the Llama decoder in PyTorch: its training
+forward and loss, the train step (``models.training``) and the serving
+half."""
 
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
     decode_step,
+    forward,
+    forward_hidden,
     init_kv_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 
 __all__ = [
     "LlamaConfig",
     "decode_step",
+    "forward",
+    "forward_hidden",
     "init_kv_cache",
     "init_params",
+    "loss_fn",
     "params_from_jax",
     "prefill",
 ]

@@ -1,4 +1,5 @@
-"""Llama-family decoder in PyTorch: the serving half.
+"""Llama-family decoder in PyTorch: the training forward and the serving
+half.
 
 Counterpart of ``ray_tpu/models/llama.py``. Params are a plain dict keyed
 as the JAX package keys them (``_param_shapes``), with the per-layer
@@ -6,9 +7,13 @@ weights stacked ``[L, ...]``; caches are head-major ``[L, B, KV, S, D]``.
 Public functions keep the JAX package's layouts, so one set of numpy arrays
 feeds both packages in the tests.
 
-This slice ports the config, parameter init and the decode path
-(``init_kv_cache``, ``prefill``, ``decode_step``). The training forward,
-the loss, LoRA deltas and the MoE decode FFN come in later slices.
+Ported: the config, parameter init, the training forward
+(``forward_hidden``, ``forward``, ``loss_fn``; causal attention through the
+CUDA flash-attention kernels for ``attention="flash"``/``"splash"`` on the
+card) and the decode path (``init_kv_cache``, ``prefill``,
+``decode_step``). MoE layers, LoRA deltas, ``remat_policy="dots"`` and the
+mesh-sharded paths (ring/Ulysses attention, pipeline stages) come in later
+slices.
 """
 
 from __future__ import annotations
@@ -18,8 +23,12 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy, matmul_fp32_out
+from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.parallel.ring_attention import dense_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,13 +47,19 @@ class LlamaConfig:
     fused_rmsnorm: bool = False
     tie_embeddings: bool = False
     moe_experts: int = 0  # >0: MoE FFN (decode raises until its slice)
-    # The fields below are the JAX config's, read by later slices (the
-    # training forward, MoE, pipelining); they are here so the JAX
-    # package's presets and ModelConfig.model_kwargs resolve unchanged.
+    # 'full' | 'flash' | 'splash' | 'ring' | 'ulysses': flash and splash run
+    # the CUDA flash-attention kernels on the card; the rest (and flash/
+    # splash on the CPU) run dense_attention, as the JAX package does off
+    # the TPU and without an sp mesh axis
     attention: str = "full"
+    # fused blockwise cross-entropy in the train loss (ops.cross_entropy)
     fused_ce: bool = True
+    # per-layer torch.utils.checkpoint in forward_hidden
     remat: bool = True
-    remat_policy: str = "full"
+    remat_policy: str = "full"  # 'dots' is not ported yet (raises)
+    # The fields below are the JAX config's, read by later slices (MoE,
+    # pipelining); they are here so the JAX package's presets and
+    # ModelConfig.model_kwargs resolve unchanged.
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -205,6 +220,141 @@ def _rope(x, positions, theta, tables=None):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training forward: full-sequence causal forward and the next-token loss.
+# ---------------------------------------------------------------------------
+
+def _attention(q, k, v, cfg: LlamaConfig):
+    """q: [B, T, H, D]; k/v: [B, T, KV, D]. Returns [B, T, H, D].
+
+    The JAX package's dispatch without a mesh: "flash" and "splash" run the
+    flash-attention kernels on the card (JAX: its Pallas kernels on the
+    TPU); everything else, and flash/splash on the CPU, runs the GQA-native
+    dense_attention (JAX: off the TPU, and ring/ulysses when sp = 1). The
+    kernels read kv head h // G directly, so K/V are never repeated."""
+    if cfg.attention in ("flash", "splash") and q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=True)
+    return dense_attention(q, k, v, causal=True)
+
+
+def _layer(layer_params, x, positions, cfg: LlamaConfig, tables=None):
+    """One transformer block. Returns (x, aux): aux is the MoE
+    load-balancing loss, 0.0 for dense layers."""
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "the MoE training forward is not ported yet: it comes with the port's "
+            "MoE/multi-device slice"
+        )
+    p = layer_params
+    B, T, e = x.shape
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = _rmsnorm(x, p["attn_norm"], cfg.rms_eps, cfg.fused_rmsnorm)
+    q = (h @ p["wq"].reshape(e, H * D)).view(B, T, H, D)
+    k = (h @ p["wk"].reshape(e, KV * D)).view(B, T, KV, D)
+    v = (h @ p["wv"].reshape(e, KV * D)).view(B, T, KV, D)
+    q = _rope(q, positions, cfg.rope_theta, tables)
+    k = _rope(k, positions, cfg.rope_theta, tables)
+    attn = _attention(q, k, v, cfg)
+    x = x + attn.reshape(B, T, H * D) @ p["wo"].reshape(H * D, e)
+
+    h = _rmsnorm(x, p["mlp_norm"], cfg.rms_eps, cfg.fused_rmsnorm)
+    ff = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
+    x = x + ff @ p["w_down"]
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _embed_lookup(table, tokens, cfg: LlamaConfig):
+    """Token embedding: the unsharded row gather (the one-hot matmul of the
+    JAX package's sharded mesh has no counterpart without a mesh)."""
+    return F.embedding(tokens.long(), table).to(cfg.dtype)
+
+
+def _layer_params(params, cfg: LlamaConfig) -> list[dict]:
+    """Per-layer views of the stacked [L, ...] weights. ``unbind`` gives all
+    L views at once, so the backward stacks each weight's L gradients into
+    one [L, ...] tensor (indexing layer by layer would instead build a
+    zero-filled [L, ...] gradient per layer and sum L of them)."""
+    keys = _layer_keys(cfg)
+    return [dict(zip(keys, vals)) for vals in zip(*(params[k].unbind(0) for k in keys))]
+
+
+def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None, with_aux: bool = False):
+    """tokens: [B, T] int -> final hidden states [B, T, d_model].
+
+    ``with_aux=True`` returns (hidden, aux), aux the summed MoE
+    load-balancing loss (0 for dense configs). ``positions`` [B, T] gives
+    absolute RoPE positions (default 0..T-1). ``cfg.remat`` runs each layer
+    under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass, the counterpart of the JAX package's
+    per-layer ``jax.checkpoint``; ``remat_policy="dots"`` is not ported."""
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP Queue A); use 'full'"
+        )
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=dev).expand(tokens.shape)
+    else:
+        positions = torch.as_tensor(positions, device=dev)
+    x = _embed_lookup(params["embed"], tokens, cfg)
+    tables = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for lp in _layer_params(params, cfg):
+        if cfg.remat:
+            x, a = checkpoint(_layer, lp, x, positions, cfg, tables, use_reentrant=False)
+        else:
+            x, a = _layer(lp, x, positions, cfg, tables)
+        aux = aux + a
+    x = _rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.fused_rmsnorm)
+    return (x, aux) if with_aux else x
+
+
+def _unembed(params, cfg: LlamaConfig):
+    return params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+
+
+def _project_logits(x, params, cfg: LlamaConfig):
+    """Vocab projection shared by forward() and the training loss: operands
+    in x's dtype, fp32 accumulation and fp32 logits (the JAX package's
+    preferred_element_type=float32)."""
+    return matmul_fp32_out(x, _unembed(params, cfg).to(x.dtype))
+
+
+def forward(params, tokens, cfg: LlamaConfig, positions=None):
+    """tokens: [B, T] int -> logits [B, T, vocab] (fp32)."""
+    x = forward_hidden(params, tokens, cfg, positions)
+    return _project_logits(x, params, cfg)
+
+
+def loss_fn(params, batch, cfg: LlamaConfig):
+    """Next-token cross-entropy. batch: {'tokens': [B, T+1]} (labels are
+    the tokens shifted by one, a 'mask' [B, T+1] likewise) or {'tokens',
+    'labels', 'mask'}. The mean is over the mask sum, clamped at 1."""
+    dev = params["embed"].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    tokens = batch["tokens"]
+    if "labels" in batch:
+        labels, mask = batch["labels"], batch.get("mask")
+    else:
+        labels = tokens[:, 1:]
+        tokens = tokens[:, :-1]
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = mask[:, 1:]
+    # (the MoE aux term, moe_aux_weight * aux, comes with the MoE layers)
+    x = forward_hidden(params, tokens, cfg)
+    if cfg.fused_ce:
+        return fused_cross_entropy(x, _unembed(params, cfg), labels, mask=mask)
+    logits = _project_logits(x, params, cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

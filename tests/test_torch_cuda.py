@@ -55,3 +55,135 @@ def test_kernel_refuses_on_card():
         rmsnorm(x.t().contiguous().t(), torch.ones(64, device="cuda"))  # strided
     with pytest.raises(ValueError):
         rmsnorm(x, torch.ones(64))  # w on the CPU
+
+
+# ---- flash attention ----------------------------------------------------------
+
+from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn  # noqa: E402
+from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
+    agreement,
+    flash_attention,
+    flash_attention_bwd_kernel,
+    flash_attention_bwd_plain,
+    flash_attention_fwd_kernel,
+    flash_attention_fwd_plain,
+    reset_launches,
+)
+
+# (B, T, H, KV, D): the train bench shape, the 3B GQA head shape, ragged T
+# (not a multiple of the 64-row or the 32-row block), T = 1, D = 64
+ATTN_SHAPES = {
+    "bench": (4, 2048, 16, 16, 128),
+    "gqa3b": (2, 2048, 24, 8, 128),
+    "ragged": (2, 200, 4, 2, 128),
+    "t1": (1, 1, 2, 1, 128),
+    "d64": (2, 333, 8, 2, 64),
+}
+
+
+def _attn_inputs(shape, seed=0):
+    B, T, H, KV, D = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()  # noqa: E731
+    return mk(B, T, H, D), mk(B, T, KV, D), mk(B, T, KV, D), mk(B, T, H, D)
+
+
+def _assert_agree(out, ref, what):
+    a = agreement(out, ref)
+    assert a["ok"], (what, a)
+
+
+# every shape causal (the training path's mask), the small ones also without
+ATTN_CASES = [(n, True) for n in ATTN_SHAPES] + [(n, False) for n in ("ragged", "t1", "d64")]
+
+
+@pytest.mark.parametrize("name,causal", ATTN_CASES,
+                         ids=[f"{n}-{'causal' if c else 'full'}" for n, c in ATTN_CASES])
+def test_flash_attention_kernels_match_plain_on_card(name, causal):
+    _need_card()
+    q, k, v, do = _attn_inputs(ATTN_SHAPES[name])
+    reset_launches()
+    o, lse = flash_attention_fwd_kernel(q, k, v, causal=causal)
+    dq, dk, dv = flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    f = flash_attention
+    assert (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv) == (1, 1, 1)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=causal)
+    _assert_agree(o, o_p, "o")
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)  # fp32 both sides
+    # the backward against the plain closed form from the kernel's own o/lse
+    for what, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                               flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)):
+        _assert_agree(got, want, what)
+
+
+def test_flash_attention_reads_strided_views_on_card():
+    """Head-major storage seen as [B, T, H, D] and a head_dim slice: the
+    kernels read both through their strides (no copy)."""
+    _need_card()
+    B, T, H, D = 2, 130, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(B, H, T, D, generator=g, device="cuda").bfloat16().transpose(1, 2)
+    kv = torch.randn(B, T, 2, 2 * D, generator=g, device="cuda").bfloat16()
+    k, v = kv[..., :D], kv[..., D:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    o, lse = flash_attention_fwd_kernel(q, k, v)
+    _assert_agree(o, flash_attention_fwd_plain(q, k, v)[0], "o")
+    do = torch.randn(B, T, H, D, generator=g, device="cuda").bfloat16()
+    for what, got, want in zip(("dq", "dk", "dv"), flash_attention_bwd_kernel(q, k, v, o, lse, do),
+                               flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        _assert_agree(got, want, what)
+
+
+def test_flash_attention_autograd_on_card_is_the_kernels():
+    _need_card()
+    q, k, v, do = _attn_inputs(ATTN_SHAPES["ragged"], seed=2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    out = flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    f = flash_attention
+    assert (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv) == (1, 1, 1)
+    o, lse = flash_attention_fwd_kernel(q, k, v)
+    assert torch.equal(out.detach(), o)
+    for got, want in zip(grads, flash_attention_bwd_kernel(q, k, v, o, lse, do)):
+        assert torch.equal(got, want)
+
+
+def test_flash_attention_refuses_on_card():
+    _need_card()
+    q, k, v, _ = _attn_inputs((1, 16, 2, 1, 64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q.float(), k.float(), v.float())  # no fp32 kernel
+    q96, k96, v96, _ = _attn_inputs((1, 16, 2, 1, 96))
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_attention(q96, k96, v96)
+    wide = torch.randn(1, 16, 2, 72, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(wide[..., 1:65], k, v)  # rows start 2 bytes off
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q[:, :8], k, v)  # T differs
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+def test_train_forward_launch_counts_on_card(remat):
+    """Through loss_fn and its backward: remat re-runs each layer's forward
+    (and so its attention kernel) in the backward pass."""
+    _need_card()
+    L = 3
+    cfg = LlamaConfig.tiny(d_model=256, n_heads=2, n_kv_heads=1, n_layers=L, dtype=torch.bfloat16,
+                           attention="splash", remat=remat, fused_ce=False)
+    params = init_params(cfg, seed=0, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65), device="cuda")
+    reset_launches()
+    leaves = list(params.values())
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params, {"tokens": tokens}, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    f = flash_attention
+    assert (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv) == ((2 if remat else 1) * L, L, L)
