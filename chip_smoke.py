@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path
-and its training path.
+"""On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path,
+its training path and its int8 weight path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -17,21 +17,31 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 ragged T and T = 1, each with a broken control (K one
                 position off, V one element off) that must fail the
                 limits; times, plain and library times, and bounds.
-  4. serve    — ray_tpu_torch.llm.LLMServer serves llama3.2-3b (full depth,
+  4. quant    — the int8 path of ray_tpu_torch.ops: llama3.2-3b (full width
+                and depth, seeded bf16 weights) quantized per output row
+                with quantize_int8 and dequantized to bf16 with
+                dequantize_int8, all 197 weight matrices; launch counts
+                reset before and read after (197 each); kernel and plain
+                version bit-equal on every matrix; x @ deq(q).T within 1e-2
+                relative of x @ w, and a broken control (q one column off)
+                beyond it; per shape, kernel, plain and library times, the
+                byte bound, and quantize_int8's time on the path's own w.T
+                view (the boundary copy included).
+  5. serve    — ray_tpu_torch.llm.LLMServer serves llama3.2-3b (full depth,
                 seeded random weights) with the fused RMSNorm, greedy and
                 seeded sampled requests; kernel launch counts are reset
                 just before and read just after.
-  5. numerics — a 2-layer model at full 3B width on the card through the
+  6. numerics — a 2-layer model at full 3B width on the card through the
                 kernel (fp32 and bf16), against the same weights in fp32
                 through the plain path on the CPU, and a broken control
                 that the bf16 limit must refuse.
-  6. train    — the JAX package's flagship train configuration (bench.py:
+  7. train    — the JAX package's flagship train configuration (bench.py:
                 1.2B params, 16 layers, batch 4 x 2048, remat, splash
                 attention) through make_train_step: 2 warm-up and 6 timed
                 steps, finite losses, attention launch counts equal to
                 2L x steps (forward, re-run by remat) and L x steps (each
                 backward kernel), then one profiled step.
-  7. train_numerics — 2 layers at the bench width with well-conditioned
+  8. train_numerics — 2 layers at the bench width with well-conditioned
                 weights: loss and grads in bf16 on the card through the
                 kernels against fp32 on the CPU through dense attention, a
                 broken control (the kernel fed K one position off) that
@@ -241,6 +251,134 @@ def _attention_rows(torch) -> dict:
     limits = {"rel_rms_err": REL_RMS_LIMIT, "max_abs_err_of_max_ref": MAX_ABS_LIMIT,
               "lse_max_abs_err": 1e-4}
     return {"rows": rows, "limits": limits, "max_abs_err": max_err}
+
+
+def _quant_matrices(params: dict, cfg):
+    """Every weight matrix of the model by output row, as the JAX package's
+    test quantizes ``w.T`` (tests/test_ops.py:89): per layer wq, wk, wv,
+    wo, w_gate, w_up and w_down as [out, in] views, then the tied embedding
+    once, whose rows are the unembedding's output rows."""
+    e = cfg.d_model
+    for layer in range(cfg.n_layers):
+        for name in ("wq", "wk", "wv"):
+            yield name, params[name][layer].reshape(e, -1).T
+        yield "wo", params["wo"][layer].reshape(-1, e).T
+        for name in ("w_gate", "w_up", "w_down"):
+            yield name, params[name][layer].T
+    yield "embed", params["embed"]
+
+
+def phase_quant(torch, card: str) -> dict:
+    """llama3.2-3b's weights through quantize_int8 and dequantize_int8 on
+    the card. Limits: the kernels equal their plain versions bit for bit
+    (q, scales, bf16 output); x @ deq(q).T, in fp32 on a seeded bf16 batch
+    [16, in], within the JAX package's 1e-2 relative error of x @ w
+    (tests/test_ops.py:94), and the broken control (q rolled one column,
+    dequantized by the plain version) above it."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.ops import dequantize_int8, quantize_int8
+    from ray_tpu_torch.ops.quant import dequantize_int8_plain, quantize_int8_plain, reset_launches
+    from ray_tpu_torch.tools.decode_profile import HBM_BYTES_PER_S, graph_us
+
+    limit = 1e-2
+    cfg = LlamaConfig.llama32_3b()
+    if (cfg.d_model, cfg.n_layers, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.tie_embeddings, cfg.dtype) != (3072, L_3B, 1024, 8192, 128256, True, torch.bfloat16):
+        raise AssertionError(f"not the 3B shape: {cfg}")
+    params = init_params(cfg, seed=0, device="cuda")
+    mats = list(_quant_matrices(params, cfg))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = {}  # a bf16 batch [16, in] per input width
+
+    def rel(a, b):
+        return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+    reset_launches()  # counts from here on are the path's
+    q_err = s_err = out_err = 0.0
+    unequal, kinds, shapes = [], {}, {}
+    for kind, w in mats:
+        q, s = quantize_int8(w)
+        out = dequantize_int8(q, s)
+        q_p, s_p = quantize_int8_plain(w)
+        out_p = dequantize_int8_plain(q, s)
+        q_err = max(q_err, (q.int() - q_p.int()).abs().max().item())
+        s_err = max(s_err, (s - s_p).abs().max().item())
+        out_err = max(out_err, (out.float() - out_p.float()).abs().max().item())
+        if not (torch.equal(q, q_p) and torch.equal(s, s_p)
+                and torch.equal(out.view(torch.int16), out_p.view(torch.int16))):
+            unequal.append(kind)
+        x = batch.setdefault(w.shape[1], torch.randn(16, w.shape[1], generator=gen,
+                                                     device="cuda").bfloat16()).float()
+        ref = x @ w.float().T
+        err = rel(x @ out.float().T, ref)
+        control = rel(x @ dequantize_int8_plain(torch.roll(q, 1, dims=1), s).float().T, ref)
+        k = kinds.setdefault(kind, {"shape": list(w.shape), "matrices": 0, "max_rel_err": 0.0,
+                                    "min_control_rel_err": math.inf})
+        k["matrices"] += 1
+        k["max_rel_err"] = max(k["max_rel_err"], err)
+        k["min_control_rel_err"] = min(k["min_control_rel_err"], control)
+        shapes.setdefault(tuple(w.shape), w)
+    launches = {"quantize_int8": quantize_int8.launches, "dequantize_int8": dequantize_int8.launches}
+
+    # device time per call at each shape, from a replayed CUDA graph: the
+    # kernels on a contiguous copy of the first matrix of that shape, and
+    # quantize_int8 on the path's own view (w.T: the copy at the boundary,
+    # then the kernel)
+    rows = []
+    for (r, c), view in shapes.items():
+        w = view.contiguous()
+        q, s = quantize_int8(w)
+        lib_out = torch.empty(r, c, dtype=torch.bfloat16, device="cuda")
+        big = r * c > 1e8  # the embedding: fewer calls a graph
+        n, reps = (5, 5) if big else (20, 10)
+        q_bytes = r * c * (w.element_size() + 1) + 4 * r
+        d_bytes = r * c * (1 + 2) + 4 * r
+        rows.append({
+            "shape": [r, c], "dtype": "bfloat16", "matrices": sum(
+                k["matrices"] for k in kinds.values() if k["shape"] == [r, c]),
+            "quantize": {"kernel_us": graph_us(lambda: quantize_int8(w), n, reps),
+                         "path_us": graph_us(lambda: quantize_int8(view), n, reps),
+                         "path_copies": not view.is_contiguous(),
+                         "plain_us": graph_us(lambda: quantize_int8_plain(w), max(n // 4, 2), reps),
+                         "bytes": q_bytes, "bound_us": q_bytes / HBM_BYTES_PER_S * 1e6},
+            "dequantize": {"kernel_us": graph_us(lambda: dequantize_int8(q, s), n, reps),
+                           "plain_us": graph_us(lambda: dequantize_int8_plain(q, s), max(n // 4, 2), reps),
+                           "library_us": graph_us(lambda: torch.mul(q, s[:, None], out=lib_out), n, reps),
+                           "library_bit_equal": torch.equal(
+                               lib_out.view(torch.int16), dequantize_int8(q, s).view(torch.int16)),
+                           "bytes": d_bytes, "bound_us": d_bytes / HBM_BYTES_PER_S * 1e6},
+        })
+    # the whole model once through the path: per shape, matrices x (one
+    # quantize + one dequantize); "path" counts the boundary copies of w.T
+    model_us = {key: sum(t["matrices"] * (t["quantize"][qk] + t["dequantize"][dk]) for t in rows)
+                for key, qk, dk in (("kernels", "kernel_us", "kernel_us"),
+                                    ("path", "path_us", "kernel_us"),
+                                    ("bound", "bound_us", "bound_us"))}
+    out = {
+        "phase": "quant", "card": card, "model": "llama3.2-3b", "matrices": len(mats),
+        "launches": launches, "launches_expected": len(mats), "model_us": model_us,
+        "kernel_vs_plain": {"unequal": unequal, "q_max_abs_err": q_err, "scales_max_abs_err": s_err,
+                            "out_max_abs_err": out_err},
+        "matmul_rel_err_limit": limit, "by_kind": kinds, "timing": rows,
+        "library": "dequantize: torch.mul(q, scales[:, None], out=<bf16>); quantize: none "
+                   "(no single PyTorch call computes it)",
+    }
+    emit(out)
+    del params, mats, batch, shapes
+    torch.cuda.empty_cache()
+    n = out["matrices"]
+    if n != 7 * L_3B + 1:
+        raise AssertionError(f"{n} matrices, not 7L + 1")
+    if launches != {"quantize_int8": n, "dequantize_int8": n}:
+        raise AssertionError(f"quant launches {launches} != {n} each")
+    if unequal:
+        raise AssertionError(f"quant kernels differ from their plain versions on {unequal}")
+    worst = max(k["max_rel_err"] for k in kinds.values())
+    if worst > limit:
+        raise AssertionError(f"int8 weights: matmul relative error {worst} > {limit}")
+    if min(k["min_control_rel_err"] for k in kinds.values()) <= limit:
+        raise AssertionError("quant: the broken control passed the matmul limit")
+    return out
 
 
 def phase_serve(torch, card: str) -> dict:
@@ -616,6 +754,8 @@ def main() -> int:
         return result
 
     k = timed_phase("kernels", phase_kernels)
+    quant = timed_phase("quant", phase_quant)
+    torch.cuda.empty_cache()
     serve = timed_phase("serve", phase_serve)
     torch.cuda.empty_cache()
     timed_phase("numerics", phase_numerics)
@@ -638,6 +778,15 @@ def main() -> int:
                 "bwd_pair_ms": (bench["bwd_dq"]["kernel_us"] + bench["bwd_dkdv"]["kernel_us"]) / 1e3,
                 "library_note": "aten._scaled_dot_product_flash_attention_backward: dq, dk, dv "
                                 "together, the function of both backward kernels"}
+    # the quant rows at w_gate/w_up's shape [8192, 3072] (56 of the 197
+    # matrices); the quant phase line has every shape
+    mlp_up = next(r for r in quant["timing"] if r["shape"] == [8192, 3072])
+    kvp = quant["kernel_vs_plain"]
+    quant_kernels = [
+        ("quantize_int8", "quantize", "ray_tpu/ops/quant.py:20",
+         max(kvp["q_max_abs_err"], kvp["scales_max_abs_err"])),
+        ("dequantize_int8", "dequantize", "ray_tpu/ops/quant.py:29", kvp["out_max_abs_err"]),
+    ]
     emit({"kernels": [{
         "name": "rmsnorm",
         "route": "cuda",
@@ -663,7 +812,23 @@ def main() -> int:
         "bound_by": bench[key]["bound_by"],
         "library_ms": lib_us / 1e3 if lib_us is not None else None,
         **(bwd_pair if key.startswith("bwd") else {}),
-    } for name, key, replaces, lib_us in attention_kernels]})
+    } for name, key, replaces, lib_us in attention_kernels] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/quant.cu",
+        "replaces": replaces,
+        "launches": quant["launches"][name],
+        "max_abs_err": err,
+        "ms": mlp_up[key]["kernel_us"] / 1e3,
+        "plain_ms": mlp_up[key]["plain_us"] / 1e3,
+        "bound_ms": mlp_up[key]["bound_us"] / 1e3,
+        "bound_by": "bytes",
+        "library_ms": mlp_up[key]["library_us"] / 1e3 if "library_us" in mlp_up[key] else None,
+        "shape": mlp_up["shape"],
+        **({"path_ms": mlp_up[key]["path_us"] / 1e3} if "path_us" in mlp_up[key] else {}),
+        **({"library_bit_equal": mlp_up[key]["library_bit_equal"]} if "library_us" in mlp_up[key]
+           else {"library_note": "no single PyTorch call computes per-row absmax int8 quantization"}),
+    } for name, key, replaces, err in quant_kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

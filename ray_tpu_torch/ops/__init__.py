@@ -7,6 +7,7 @@ the plain version, a CUDA tensor runs the kernel or raises.
 
 from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.quant import dequantize_int8, quantize_int8
 from ray_tpu_torch.ops.rmsnorm import rmsnorm
 
-__all__ = ["flash_attention", "fused_cross_entropy", "rmsnorm"]
+__all__ = ["dequantize_int8", "flash_attention", "fused_cross_entropy", "quantize_int8", "rmsnorm"]

@@ -12,14 +12,12 @@
 // those bytes once and at full width:
 //   - 16-byte vector loads and stores of x and y (8 bf16 or 4 fp32 per
 //     thread per access), neighbouring threads on neighbouring addresses;
-//   - one block per row for wide rows (the row's sum of squares reduced by
-//     warp shuffles, then across warps through shared memory), one warp per
-//     row for narrow rows (shuffles only, several rows per block);
+//   - one block per row (the row's sum of squares reduced by warp
+//     shuffles, then across warps through shared memory: row_reduce.cuh);
 //   - the row is read a second time for the scale-and-store pass; that
 //     re-read hits L1/L2 (a 3072-wide bf16 row is 6 KB), not device memory;
-//   - the ragged end of the row range is masked here (no host-side padding:
-//     the TPU's (8, 128) tiling helpers ops/_common.py:pad_rows/pick_block
-//     have no counterpart).
+//   - any row count, with no host-side padding (the TPU's (8, 128) tiling
+//     helpers ops/_common.py:pad_rows/pick_block have no counterpart).
 // At serving's decode shapes (16 rows of 3072) a call moves ~200 KB and is
 // bound by launch latency, not by bytes; see PERF.md.
 //
@@ -30,11 +28,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_reduce.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kRowsPerWarpBlock = 4;   // narrow rows: 4 warps, one row each
-constexpr int kNarrowVecs = 128;       // <= this many accesses a row: warp/row
 constexpr int kMaxThreads = 512;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -52,36 +49,18 @@ struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// VEC: elements per access (16 bytes' worth, or 1 when x/y are not 16-byte
-// aligned or d is not a multiple of the vector width).
-// WARP_ROW: one warp per row (narrow rows) instead of one block per row.
-template <typename XT, typename WT, int VEC, bool WARP_ROW>
+// One block per row. VEC: elements per access (16 bytes' worth, or 1 when
+// x/y are not 16-byte aligned or d is not a multiple of the vector width).
+template <typename XT, typename WT, int VEC>
 __global__ void rmsnorm_fwd_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
-                                   XT* __restrict__ y, long long rows, int d, float eps) {
-  long long row;
-  int tid, nthreads;
-  if (WARP_ROW) {
-    row = (long long)blockIdx.x * kRowsPerWarpBlock + threadIdx.x / kWarp;
-    tid = threadIdx.x % kWarp;
-    nthreads = kWarp;
-    if (row >= rows) return;  // ragged tail: the whole warp leaves together
-  } else {
-    row = blockIdx.x;
-    tid = threadIdx.x;
-    nthreads = blockDim.x;
-  }
+                                   XT* __restrict__ y, int d, float eps) {
+  const long long row = blockIdx.x;
   const int nvec = d / VEC;
   const Vec<XT, VEC>* xr = reinterpret_cast<const Vec<XT, VEC>*>(x + row * (long long)d);
   Vec<XT, VEC>* yr = reinterpret_cast<Vec<XT, VEC>*>(y + row * (long long)d);
 
   float ss = 0.f;
-  for (int i = tid; i < nvec; i += nthreads) {
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
     const Vec<XT, VEC> v = xr[i];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
@@ -89,25 +68,10 @@ __global__ void rmsnorm_fwd_kernel(const XT* __restrict__ x, const WT* __restric
       ss += f * f;
     }
   }
-  ss = warp_sum(ss);
-  if (!WARP_ROW) {
-    __shared__ float partial[kMaxThreads / kWarp];
-    __shared__ float total;
-    const int warp = tid / kWarp;
-    if (tid % kWarp == 0) partial[warp] = ss;
-    __syncthreads();
-    if (warp == 0) {
-      const int nwarps = (nthreads + kWarp - 1) / kWarp;
-      float t = tid < nwarps ? partial[tid] : 0.f;
-      t = warp_sum(t);
-      if (tid == 0) total = t;
-    }
-    __syncthreads();
-    ss = total;
-  }
+  ss = row_reduce::block_reduce<row_reduce::Sum>(ss);
   const float scale = rsqrtf(ss / (float)d + eps);
 
-  for (int i = tid; i < nvec; i += nthreads) {
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
     const Vec<XT, VEC> v = xr[i];
     Vec<XT, VEC> o;
 #pragma unroll
@@ -122,17 +86,8 @@ __global__ void rmsnorm_fwd_kernel(const XT* __restrict__ x, const WT* __restric
 template <typename XT, typename WT, int VEC>
 void launch_vec(const XT* x, const WT* w, XT* y, long long rows, int d, float eps,
                 cudaStream_t stream) {
-  const int nvec = d / VEC;
-  if (nvec <= kNarrowVecs) {
-    const long long blocks = (rows + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
-    rmsnorm_fwd_kernel<XT, WT, VEC, true>
-        <<<(unsigned)blocks, kWarp * kRowsPerWarpBlock, 0, stream>>>(x, w, y, rows, d, eps);
-  } else {
-    int threads = ((nvec + kWarp - 1) / kWarp) * kWarp;
-    if (threads > kMaxThreads) threads = kMaxThreads;
-    rmsnorm_fwd_kernel<XT, WT, VEC, false>
-        <<<(unsigned)rows, threads, 0, stream>>>(x, w, y, rows, d, eps);
-  }
+  const int threads = row_reduce::row_threads(d / VEC, kMaxThreads);
+  rmsnorm_fwd_kernel<XT, WT, VEC><<<(unsigned)rows, threads, 0, stream>>>(x, w, y, d, eps);
 }
 
 template <typename XT, typename WT>

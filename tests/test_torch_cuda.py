@@ -187,3 +187,95 @@ def test_train_forward_launch_counts_on_card(remat):
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
     f = flash_attention
     assert (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv) == ((2 if remat else 1) * L, L, L)
+
+
+# ---- int8 quantize / dequantize ---------------------------------------------
+
+from ray_tpu_torch.ops import dequantize_int8, quantize_int8  # noqa: E402
+from ray_tpu_torch.ops import quant  # noqa: E402
+
+# the CPU tests' shapes (ragged rows, widths no multiple of 16: the scalar
+# path) and llama3.2-3b's weight matrices by output row (wq/wo, wk/wv,
+# w_gate/w_up, w_down, the tied embedding)
+QUANT_SHAPES = [(64, 256), (13, 100), (520, 257), (3, 5), (256, 3072),
+                (3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192), (128256, 3072)]
+QUANT_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("xdt", QUANT_DTYPES, ids=lambda d: str(d).split(".")[-1])
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_quant_kernels_bit_equal_to_plain_on_card(shape, xdt):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(shape[0] * 7 + shape[1])
+    x = (0.02 * torch.randn(shape, generator=g, device="cuda")).to(xdt)
+    x[0] = 0  # an all-zero row: the floor scale
+    quant.reset_launches()
+    q, s = quantize_int8(x)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == 1
+    q_p, s_p = quant.quantize_int8_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+    for odt in QUANT_DTYPES:
+        out = dequantize_int8(q, s, dtype=odt)
+        assert out.dtype == odt
+        ref = quant.dequantize_int8_plain(q, s, dtype=odt)
+        assert torch.equal(out.view(torch.int8), ref.view(torch.int8)), odt  # bit for bit
+    assert dequantize_int8.launches == len(QUANT_DTYPES)
+
+
+@pytest.mark.parametrize("special", [float("nan"), float("inf")], ids=["nan", "inf"])
+@pytest.mark.parametrize("shape", [(4, 64), (3, 5), (8, 3072)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_quant_nonfinite_row_on_card(shape, special):
+    """A NaN carries through the kernel's absmax as through the plain
+    version's (and jnp.max): that row's scale is NaN (inf for an inf) and its
+    q 0, every other row as usual."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    x[1, shape[1] - 1] = special  # in the last thread's share of the row
+    q, s = quantize_int8(x)
+    q_p, s_p = quant.quantize_int8_plain(x)
+    assert torch.equal(q, q_p)
+    torch.testing.assert_close(s, s_p, rtol=0, atol=0, equal_nan=True)
+    assert (q[1] == 0).all()
+    assert s[1].isnan().item() if special != special else s[1].item() == float("inf")
+    assert torch.isfinite(s[[0, *range(2, shape[0])]]).all()
+    out = dequantize_int8(q, s, dtype=torch.float32)
+    torch.testing.assert_close(out, quant.dequantize_int8_plain(q, s, dtype=torch.float32),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+def test_quant_reads_a_transposed_weight_on_card():
+    """Per-output-row scales of w.T, a strided view, through the public
+    function (contiguous at the boundary), as the reference's test does."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn(3072, 1024, generator=g, device="cuda").bfloat16()
+    assert not w.T.is_contiguous()
+    quant.reset_launches()
+    q, s = quantize_int8(w.T)
+    q_p, s_p = quant.quantize_int8_plain(w.T.contiguous())
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+    x = torch.randn(16, 3072, generator=g, device="cuda")
+    w_deq = dequantize_int8(q, s).T.float()
+    rel = (torch.linalg.norm(x @ w_deq - x @ w.float()) / torch.linalg.norm(x @ w.float())).item()
+    assert rel < 0.01, rel
+    assert (quantize_int8.launches, dequantize_int8.launches) == (1, 1)
+
+
+def test_quant_refuses_on_card():
+    _need_card()
+    x = torch.randn(4, 64, device="cuda")
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        quantize_int8(x.to(torch.int32))
+    with pytest.raises(ValueError, match="2-D"):
+        quantize_int8(x[0])
+    q, s = quantize_int8(x)
+    with pytest.raises(TypeError, match="dtype must be"):
+        dequantize_int8(q, s, dtype=torch.float64)
+    with pytest.raises(TypeError, match="int8"):
+        dequantize_int8(q.to(torch.int32), s)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dequantize_int8(q, s.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.quantize_int8_kernel(x.t())

@@ -265,6 +265,7 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     tell for jax): no import of jax/jaxlib/optax or ray_tpu[.*]."""
     files = _port_files()
     assert len(files) > 10
+    assert REPO / "ray_tpu_torch" / "ops" / "quant.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
