@@ -12,11 +12,13 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 process per source, in parallel.
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 RMSNorm at the serving path's shapes; the three
-                flash-attention kernels (forward, backward dQ, backward
-                dK/dV) at the train bench shape, the 3B GQA head shape, a
-                ragged T and T = 1, each with a broken control (K one
-                position off, V one element off) that must fail the
-                limits; times, plain and library times, and bounds.
+                flash-attention kernels (forward: TMA, wgmma, warp-
+                specialised; backward dQ, backward dK/dV) at the train
+                bench shape, the 3B GQA head shape, a ragged T and T = 1,
+                each with a broken control (K one position off, V one
+                element off) that must fail the limits; times, plain and
+                library times (SDPA, with enable_gqa at the GQA shape),
+                bounds, and the forward's TFLOP/s.
   4. quant    — the int8 path of ray_tpu_torch.ops: llama3.2-3b (full width
                 and depth, seeded bf16 weights) quantized per output row
                 with quantize_int8 and dequantized to bf16 with
@@ -133,8 +135,8 @@ def phase_kernels(torch, card: str) -> dict:
 
 
 # (B, T, H, KV, D): the train bench shape, llama3.2-3b's GQA head shape at
-# the bench's batch and length, a T that is a multiple of neither the 64-
-# nor the 32-row block, and T = 1
+# the bench's batch and length, a T that is a multiple of none of the 128-,
+# 64- and 32-row blocks, and T = 1
 ATTN_CASES = [
     ("bench", (4, 2048, 16, 16, 128), True),
     ("gqa3b", (4, 2048, 24, 8, 128), True),
@@ -208,6 +210,7 @@ def _attention_rows(torch) -> dict:
             row["fwd"] = {"kernel_us": graph_us(lambda: flash_attention_fwd_kernel(q, k, v), 20, 10),
                           "plain_us": graph_us(lambda: flash_attention_fwd_plain(q, k, v), 3, 3),
                           **bound(4 * hd, 2 * qb + 2 * kvb + rowb)}
+            row["fwd"]["tflops"] = 4 * hd / row["fwd"]["kernel_us"] / 1e6  # useful FLOPs
             row["bwd_dq"] = {
                 "kernel_us": graph_us(lambda: flash_attention_bwd_dq_kernel(q, k, v, o, lse, do), 20, 10),
                 **bound(6 * hd, 4 * qb + 2 * kvb + 2 * rowb)}
@@ -765,6 +768,7 @@ def main() -> int:
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
     bench = next(r for r in k["attention"]["rows"] if r["case"] == "bench")
+    gqa3b = next(r for r in k["attention"]["rows"] if r["case"] == "gqa3b")
     attention_kernels = [
         ("flash_attention_fwd", "fwd", "ray_tpu/models/llama.py:334", bench["sdpa_fwd_us"]),
         ("flash_attention_bwd_dq", "bwd_dq", "ray_tpu/models/llama.py:334", bench["sdpa_bwd_us"]),
@@ -802,7 +806,7 @@ def main() -> int:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "ray_tpu_torch/ops/csrc/flash_attention" + ("_fwd.cu" if key == "fwd" else ".cu"),
         "replaces": replaces,
         "launches": train["launches"][key],
         "max_abs_err": k["attention"]["max_abs_err"],
@@ -812,6 +816,10 @@ def main() -> int:
         "bound_by": bench[key]["bound_by"],
         "library_ms": lib_us / 1e3 if lib_us is not None else None,
         **(bwd_pair if key.startswith("bwd") else {}),
+        **({"tflops": bench["fwd"]["tflops"], "gqa3b_ms": gqa3b["fwd"]["kernel_us"] / 1e3,
+            "gqa3b_bound_ms": gqa3b["fwd"]["bound_us"] / 1e3,
+            "gqa3b_library_ms": gqa3b["sdpa_fwd_us"] / 1e3, "gqa3b_tflops": gqa3b["fwd"]["tflops"]}
+           if key == "fwd" else {}),
     } for name, key, replaces, lib_us in attention_kernels] + [{
         "name": name,
         "route": "cuda",

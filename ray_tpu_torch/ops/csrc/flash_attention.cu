@@ -1,18 +1,20 @@
-// Causal flash attention for Hopper (sm_90a): forward, backward dQ and
-// backward dK/dV, bf16 in, fp32 accumulation, on tensor cores through
-// mma.sync.m16n8k16 (bf16 x bf16 -> fp32).
+// Causal flash attention backward for Hopper (sm_90a): dQ and dK/dV, bf16
+// in, fp32 accumulation, on tensor cores through mma.sync.m16n8k16
+// (bf16 x bf16 -> fp32). The forward, whose o and natural-log lse these
+// kernels read, is in flash_attention_fwd.cu.
 //
-// Replaces the TPU kernels reached from ray_tpu/models/llama.py:
+// Replaces the backward of the TPU kernels reached from
+// ray_tpu/models/llama.py:
 //   - _splash_attention (:334): JAX's Pallas splash kernel
 //     (jax/experimental/pallas/ops/tpu/splash_attention/
-//     splash_attention_kernel.py), forward pallas_call :1137, backward dQ
-//     :1635, backward dK/dV :2196;
+//     splash_attention_kernel.py), backward dQ pallas_call :1635, backward
+//     dK/dV :2196;
 //   - _flash_attention (:365): JAX's Pallas flash kernel
-//     (jax/experimental/pallas/ops/tpu/flash_attention.py), forward :758,
-//     backward dK/dV :1121, backward dQ :1456.
-// Both compute the same function, softmax(Q K^T * sm_scale + causal) V with
-// the row log-sum-exp (LSE) kept for the backward pass. Differences from
-// the TPU path, on purpose:
+//     (jax/experimental/pallas/ops/tpu/flash_attention.py), backward dK/dV
+//     :1121, backward dQ :1456.
+// Both compute the gradient of softmax(Q K^T * sm_scale + causal) V from
+// the saved row log-sum-exp (LSE). Differences from the TPU path, on
+// purpose:
 //   - GQA: JAX repeats K/V to the query head count before its kernel
 //     (llama.py:315-322); here query head h reads kv head h / G directly,
 //     and dK/dV sums over the G query heads of a kv head inside one CTA,
@@ -22,26 +24,26 @@
 //   - di = rowsum(O * dO) is folded into the dQ kernel (JAX computes it in
 //     XLA, splash :2285, flash :273); the dK/dV kernel reads it back.
 //
-// Layouts: q/o/dq [B, T, H, D], k/v/dk/dv [B, T, KV, D], read and written
-// through their batch/time/head strides (the head_dim stride is 1; the
-// wrapper checks 16-byte alignment); lse and delta fp32 [B, H, T].
+// Layouts: q/o/do/dq [B, T, H, D], k/v/dk/dv [B, T, KV, D], read and
+// written through their batch/time/head strides (the head_dim stride is 1;
+// the wrapper checks 16-byte alignment); lse and delta fp32 [B, H, T].
 //
 // Bound, at the training path's shapes (B 4, H 16, T 2048, D 128, causal):
-// the forward does 4*B*H*D*T(T+1)/2 = 6.87e10 FLOPs against ~134 MB of
-// q, k, v, o traffic, 69.5 us at 989 TFLOP/s against 40 us at 3.35 TB/s:
-// compute. The backward does 2.5x the forward's FLOPs as a function
-// (S, dP, dV, dK, dQ); as two kernels it recomputes S and dP once more.
-// The design therefore aims at the tensor cores and at skipping work:
-//   - one CTA of 4 warps per (b, h, 64-row Q block); each warp owns 16 rows
-//     and keeps its S, P and O tiles in mma.sync registers (P feeds the
-//     PV product straight from the S accumulator, no shared memory trip);
-//   - K/V tiles of 64 keys in shared memory, double-buffered with cp.async
-//     so the next tile loads while this one computes; rows padded by 16
-//     bytes so ldmatrix reads are free of bank conflicts;
-//   - causal: K/V blocks past the diagonal are never loaded (half the
-//     work), and only the diagonal and the ragged last block are masked;
-//   - causal blocks are scheduled heaviest first to even out the tail.
-// wgmma, TMA and warp specialisation are later work.
+// the backward does 2.5x the forward's 6.88e10 FLOPs as a function (S, dP,
+// dV, dK, dQ), 174 us at 989 TFLOP/s; as two kernels it recomputes S and
+// dP once more. The design aims at the tensor cores and at skipping work:
+//   - dQ: one CTA of 4 warps per (b, h, 64-row Q block); each warp owns 16
+//     rows and keeps its S, dP and dQ tiles in mma.sync registers (dS feeds
+//     the dS K product straight from the accumulator);
+//   - dK/dV: one CTA per (b, kv head, 64-key block), looping over the G
+//     query heads and the 32-row Q blocks at or below the diagonal;
+//   - K/V (dQ) and Q/dO (dK/dV) tiles in shared memory, double-buffered
+//     with cp.async so the next tile loads while this one computes; rows
+//     padded by 16 bytes so ldmatrix reads are free of bank conflicts;
+//   - causal: blocks past the diagonal are never loaded, and only the
+//     diagonal and the ragged last block are masked.
+// wgmma, TMA and warp specialisation, as the forward uses them, are later
+// work here.
 //
 // C interface (loaded with ctypes): each entry point returns
 // cudaGetLastError() after its launch, so a refused launch is reported.
@@ -56,8 +58,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;   // 4 warps
-constexpr int kBlockQ = 64;     // query rows per CTA (fwd, dQ): 16 a warp
-constexpr int kBlockK = 64;     // keys per tile (fwd, dQ) and per CTA (dK/dV)
+constexpr int kBlockQ = 64;     // query rows per CTA (dQ): 16 a warp
+constexpr int kBlockK = 64;     // keys per tile (dQ) and per CTA (dK/dV)
 constexpr int kBwdBlockQ = 32;  // query rows per tile in dK/dV
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -69,9 +71,8 @@ struct Params {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  const bf16* o;   // forward: written; backward: the saved output
+  const bf16* o;  // the forward's output
   const bf16* dout;
-  bf16* out;
   bf16* dq;
   bf16* dk;
   bf16* dv;
@@ -168,140 +169,6 @@ __device__ __forceinline__ void store_rows(bf16* base, long long s_t, int row, i
   for (int dt = 0; dt < D / 8; ++dt) {
     *reinterpret_cast<uint32_t*>(dst + dt * 8) =
         pack_bf16(acc[dt][2 * half] * mul, acc[dt][2 * half + 1] * mul);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Forward: one CTA per (64-row Q block, h, b).
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  constexpr int S = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBlockQ * S;  // [2][kBlockK][S]
-  bf16* sV = sK + 2 * kBlockK * S;
-
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal blocks first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int T = p.T, q0 = qb * kBlockQ;
-
-  const bf16* qbase = p.q + b * p.s[Q_][0] + h * p.s[Q_][2];
-  const bf16* kbase = p.k + b * p.s[K_][0] + kvh * p.s[K_][2];
-  const bf16* vbase = p.v + b * p.s[V_][0] + kvh * p.s[V_][2];
-  const int nk_all = (T + kBlockK - 1) / kBlockK;
-  const int nk = p.causal ? min(nk_all, (q0 + kBlockQ - 1) / kBlockK + 1) : nk_all;
-
-  load_tile<D, kBlockQ>(sQ, qbase, p.s[Q_][1], q0, T);
-  load_tile<D, kBlockK>(sK, kbase, p.s[K_][1], 0, T);
-  load_tile<D, kBlockK>(sV, vbase, p.s[V_][1], 0, T);
-  cp_async_commit();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // running row max, log2 domain
-  float l_run[2] = {0.f, 0.f};              // this thread's share of the row sum
-  uint32_t qf[D / 16][4];
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  for (int it = 0; it < nk; ++it) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (it + 1 < nk) {
-      const int nb = (it + 1) & 1;
-      load_tile<D, kBlockK>(sK + nb * kBlockK * S, kbase, p.s[K_][1], (it + 1) * kBlockK, T);
-      load_tile<D, kBlockK>(sV + nb * kBlockK * S, vbase, p.s[V_][1], (it + 1) * kBlockK, T);
-      cp_async_commit();
-    }
-    if (it == 0) {
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) load_a<S>(qf[ks], sQ, warp * 16, ks * 16, lane);
-    }
-    const bf16* tK = sK + (it & 1) * kBlockK * S;
-    const bf16* tV = sV + (it & 1) * kBlockK * S;
-    const int k0 = it * kBlockK;
-
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBlockK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kBlockK / 16; ++np) {
-        uint32_t bf[4];
-        load_b_nk<S>(bf, tK, np * 16, ks * 16, lane);
-        mma(s[2 * np], qf[ks], bf[0], bf[1]);
-        mma(s[2 * np + 1], qf[ks], bf[2], bf[3]);
-      }
-    }
-    const bool masked = (p.causal && k0 + kBlockK - 1 > q0) || k0 + kBlockK > T;
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale_log2;
-        if (masked) {
-          const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-          const int row = row0 + (e >> 1) * 8;
-          if (col >= T || (p.causal && col > row)) x = -INFINITY;
-        }
-        s[nt][e] = x;
-      }
-    }
-    // online softmax; the 4 threads of a quad share a row
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m_run[r];
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mref = mx == -INFINITY ? 0.f : mx;
-      const float corr = exp2f(m_run[r] - mref);
-      m_run[r] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - mref);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - mref);
-        sum += s[nt][2 * r] + s[nt][2 * r + 1];
-      }
-      l_run[r] = l_run[r] * corr + sum;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * r] *= corr;
-        acc[dt][2 * r + 1] *= corr;
-      }
-    }
-    // O += P V, P straight from the S accumulator as the A operand
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]), pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        load_b_kn<S>(bf, tV, kk * 16, dp * 16, lane);
-        mma(acc[2 * dp], pa, bf[0], bf[1]);
-        mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
-      }
-    }
-  }
-
-  bf16* obase = p.out + b * p.s[O_][0] + h * p.s[O_][2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = row0 + r * 8;
-    store_rows<D>(obase, p.s[O_][1], row, T, acc, r, 1.f / l, tig);
-    if (tig == 0 && row < T)
-      p.lse[((long long)b * p.H + h) * T + row] = (m_run[r] + log2f(l)) * kLn2;
   }
 }
 
@@ -582,8 +449,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Params p
 // Host side
 // ---------------------------------------------------------------------------
 template <int D>
-constexpr int fwd_smem() { return (kBlockQ + 4 * kBlockK) * (D + 8) * 2; }
-template <int D>
 constexpr int dq_smem() { return (2 * kBlockQ + 4 * kBlockK) * (D + 8) * 2 + 2 * kBlockQ * 4; }
 template <int D>
 constexpr int dkdv_smem() {
@@ -594,15 +459,6 @@ constexpr int dkdv_smem() {
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <int D>
-cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
-  static const cudaError_t attr = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>());
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.T + kBlockQ - 1) / kBlockQ, p.H, p.B);
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(p);
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -624,7 +480,7 @@ cudaError_t launch_dkdv(const Params& p, cudaStream_t stream) {
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   void* out, void* dq, void* dk, void* dv, float* lse, float* delta,
+                   void* dq, void* dk, void* dv, float* lse, float* delta,
                    const long long* strides, int B, int T, int H, int KV, float scale,
                    int causal) {
   Params p;
@@ -633,7 +489,6 @@ Params make_params(const void* q, const void* k, const void* v, const void* o, c
   p.v = static_cast<const bf16*>(v);
   p.o = static_cast<const bf16*>(o);
   p.dout = static_cast<const bf16*>(dout);
-  p.out = static_cast<bf16*>(out);
   p.dq = static_cast<bf16*>(dq);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
@@ -656,23 +511,12 @@ Params make_params(const void* q, const void* k, const void* v, const void* o, c
 
 // strides: 24 int64, [batch, time, head] for q, k, v, o, do, dq, dk, dv
 // (unused tensors' entries are ignored). D must be 64 or 128.
-extern "C" int rt_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                 float* lse, const long long* strides, int B, int T, int H,
-                                 int KV, int D, float scale, int causal, void* stream) {
-  const Params p = make_params(q, k, v, o, nullptr, o, nullptr, nullptr, nullptr, lse, nullptr,
-                               strides, B, T, H, KV, scale, causal);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_fwd<64>(p, s);
-  if (D == 128) return launch_fwd<128>(p, s);
-  return cudaErrorInvalidValue;
-}
-
 // dQ of every query head, and delta = rowsum(o * do) [B, H, T] for dK/dV.
 extern "C" int rt_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                     const void* dout, void* dq, const float* lse, float* delta,
                                     const long long* strides, int B, int T, int H, int KV, int D,
                                     float scale, int causal, void* stream) {
-  const Params p = make_params(q, k, v, o, dout, nullptr, dq, nullptr, nullptr,
+  const Params p = make_params(q, k, v, o, dout, dq, nullptr, nullptr,
                                const_cast<float*>(lse), delta, strides, B, T, H, KV, scale,
                                causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -687,7 +531,7 @@ extern "C" int rt_flash_attn_bwd_dkdv(const void* q, const void* k, const void* 
                                       const float* delta, const long long* strides, int B, int T,
                                       int H, int KV, int D, float scale, int causal,
                                       void* stream) {
-  const Params p = make_params(q, k, v, nullptr, dout, nullptr, nullptr, dk, dv,
+  const Params p = make_params(q, k, v, nullptr, dout, nullptr, dk, dv,
                                const_cast<float*>(lse), const_cast<float*>(delta), strides, B, T,
                                H, KV, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

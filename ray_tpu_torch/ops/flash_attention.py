@@ -9,10 +9,12 @@ and flash kernels, forward and backward). ``flash_attention(q, k, v)`` is a
 
 - a CPU tensor goes to ``flash_attention_fwd_plain`` /
   ``flash_attention_bwd_plain`` (fp32 math);
-- a CUDA tensor goes to the kernels in ``csrc/flash_attention.cu`` and
-  nowhere else: a CUDA tensor the kernels do not take (dtype other than
-  bf16, head_dim other than 64 or 128, a layout whose rows are not 16-byte
-  aligned, differing lengths) raises, as does a failed build or launch.
+- a CUDA tensor goes to the kernels and nowhere else: the forward in
+  ``csrc/flash_attention_fwd.cu`` (TMA, wgmma, warp-specialised), the
+  backward dQ and dK/dV in ``csrc/flash_attention.cu``. A CUDA tensor the
+  kernels do not take (dtype other than bf16, head_dim other than 64 or
+  128, a layout whose rows are not 16-byte aligned, differing lengths)
+  raises, as does a failed build, tensor-map encoding or launch.
 
 The forward saves ``o`` and the fp32 row log-sum-exp ``lse [B, H, T]``; the
 backward reads them and does not recompute the forward. Under
@@ -100,25 +102,38 @@ def agreement(out: torch.Tensor, ref: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TAIL = [_P, _I, _I, _I, _I, _I, _F, _I, _P]  # strides, B, T, H, KV, D, scale, causal, stream
+
+
 @functools.cache
 def _lib():
-    """The C entry points, built and loaded on first use."""
+    """The backward kernels' C entry points, built and loaded on first use."""
     from ray_tpu_torch._native.build import load
 
     lib = load("flash_attention")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [p, i, i, i, i, i, f, i, p]  # strides, B, T, H, KV, D, scale, causal, stream
-    lib.rt_flash_attn_fwd.argtypes = [p, p, p, p, p] + tail
-    lib.rt_flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, p] + tail
-    lib.rt_flash_attn_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p] + tail
-    for fn in (lib.rt_flash_attn_fwd, lib.rt_flash_attn_bwd_dq, lib.rt_flash_attn_bwd_dkdv):
+    lib.rt_flash_attn_bwd_dq.argtypes = [_P] * 8 + _TAIL
+    lib.rt_flash_attn_bwd_dkdv.argtypes = [_P] * 8 + _TAIL
+    for fn in (lib.rt_flash_attn_bwd_dq, lib.rt_flash_attn_bwd_dkdv):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _fwd_lib():
+    """The forward kernel's C entry point, built and loaded on first use."""
+    from ray_tpu_torch._native.build import load
+
+    lib = load("flash_attention_fwd")
+    lib.rt_flash_attn_fwd.argtypes = [_P] * 6 + _TAIL
+    lib.rt_flash_attn_fwd.restype = ctypes.c_int
     return lib
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
     """Rows of head_dim elements must be contiguous and 16-byte aligned:
-    the kernels copy them in 16-byte pieces."""
+    the backward kernels copy them in 16-byte pieces, and the forward's TMA
+    tensor maps need 16-byte strides and a 16-byte aligned start."""
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(
             f"flash_attention kernel: {name} must have a unit head_dim stride, other "
@@ -165,6 +180,13 @@ def _strides(**tensors) -> ctypes.Array:
 
 
 def _raise_if(err: int, what: str) -> None:
+    if err == -1:
+        raise RuntimeError(f"flash_attention {what}: the driver has no cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(
+            f"flash_attention {what}: cuTensorMapEncodeTiled refused a tensor map: "
+            f"CUresult {-err - 1000}"
+        )
     if err != 0:
         raise RuntimeError(f"flash_attention {what} kernel launch failed: cudaError {err}")
 
@@ -178,12 +200,14 @@ def flash_attention_fwd_kernel(q, k, v, sm_scale=None, causal: bool = True):
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    lib = _lib()
+    lib = _fwd_lib()
+    next_work = torch.zeros((), dtype=torch.int32, device=q.device)  # the scheduler's counter
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.rt_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            _strides(q=q, k=k, v=v, o=o), B, T, H, k.shape[2], D, scale, int(causal), stream,
+            next_work.data_ptr(), _strides(q=q, k=k, v=v, o=o), B, T, H, k.shape[2], D, scale,
+            int(causal), stream,
         )
     _raise_if(err, "forward")
     flash_attention.launches_fwd += 1

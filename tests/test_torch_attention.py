@@ -146,3 +146,16 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     o, lse = flash_attention_fwd_plain(q, k, v)
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_bwd_kernel(q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("err,message", [
+    (-1, "no cuTensorMapEncodeTiled"),
+    (-1001, "refused a tensor map: CUresult 1"),
+    (700, "launch failed: cudaError 700"),
+])
+def test_forward_launch_errors_name_their_cause(err, message):
+    from ray_tpu_torch.ops.flash_attention import _raise_if
+
+    _raise_if(0, "forward")  # success raises nothing
+    with pytest.raises(RuntimeError, match=message):
+        _raise_if(err, "forward")

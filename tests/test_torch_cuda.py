@@ -117,6 +117,39 @@ def test_flash_attention_kernels_match_plain_on_card(name, causal):
         _assert_agree(got, want, what)
 
 
+# the forward's tiles: 128 query rows a CTA, 128 keys a tile. T at a tile's
+# edges, causal and full, G 1 and 4, D 64 and 128
+TILE_EDGE_CASES = [(T, causal, G, D) for T in (64, 127, 128, 129, 320) for causal in (True, False)
+                   for G in (1, 4) for D in (64, 128)]
+
+
+@pytest.mark.parametrize("T,causal,G,D", TILE_EDGE_CASES,
+                         ids=[f"T{T}-{'causal' if c else 'full'}-G{G}-D{D}"
+                              for T, c, G, D in TILE_EDGE_CASES])
+def test_flash_attention_fwd_tile_edges_on_card(T, causal, G, D):
+    _need_card()
+    q, k, v, do = _attn_inputs((2, T, 2 * G, 2, D), seed=T + G + D)
+    o, lse = flash_attention_fwd_kernel(q, k, v, causal=causal)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=causal)
+    _assert_agree(o, o_p, "o")
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    for what, got, want in zip(("dq", "dk", "dv"),
+                               flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=causal),
+                               flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)):
+        _assert_agree(got, want, what)
+
+
+def test_flash_attention_fwd_runs_several_waves_on_card():
+    """B x H x T/128 = 1,024 work items, above 4 x 132: each of the 132
+    persistent CTAs takes about eight from the counter."""
+    _need_card()
+    q, k, v, _ = _attn_inputs((8, 1024, 16, 4, 128), seed=7)
+    o, lse = flash_attention_fwd_kernel(q, k, v)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v)
+    _assert_agree(o, o_p, "o")
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
 def test_flash_attention_reads_strided_views_on_card():
     """Head-major storage seen as [B, T, H, D] and a head_dim slice: the
     kernels read both through their strides (no copy)."""
