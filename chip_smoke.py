@@ -17,8 +17,9 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 bench shape, the 3B GQA head shape, a ragged T and T = 1,
                 each with a broken control (K one position off, V one
                 element off) that must fail the limits; times, plain and
-                library times (SDPA, with enable_gqa at the GQA shape),
-                bounds, and the forward's TFLOP/s.
+                library times (SDPA, with enable_gqa at the GQA shape;
+                SDPA's backward on K/V repeated to H heads there), bounds,
+                and each kernel's TFLOP/s and share of its bound.
   4. quant    — the int8 path of ray_tpu_torch.ops: llama3.2-3b (full width
                 and depth, seeded bf16 weights) quantized per output row
                 with quantize_int8 and dequantized to bf16 with
@@ -210,7 +211,6 @@ def _attention_rows(torch) -> dict:
             row["fwd"] = {"kernel_us": graph_us(lambda: flash_attention_fwd_kernel(q, k, v), 20, 10),
                           "plain_us": graph_us(lambda: flash_attention_fwd_plain(q, k, v), 3, 3),
                           **bound(4 * hd, 2 * qb + 2 * kvb + rowb)}
-            row["fwd"]["tflops"] = 4 * hd / row["fwd"]["kernel_us"] / 1e6  # useful FLOPs
             row["bwd_dq"] = {
                 "kernel_us": graph_us(lambda: flash_attention_bwd_dq_kernel(q, k, v, o, lse, do), 20, 10),
                 **bound(6 * hd, 4 * qb + 2 * kvb + 2 * rowb)}
@@ -218,6 +218,10 @@ def _attention_rows(torch) -> dict:
                 "kernel_us": graph_us(
                     lambda: flash_attention_bwd_dkdv_kernel(q, k, v, lse, delta, do), 20, 10),
                 **bound(8 * hd, 2 * qb + 4 * kvb + 2 * rowb)}
+            for key in ("fwd", "bwd_dq", "bwd_dkdv"):  # useful FLOPs a second; share of the bound
+                r = row[key]
+                r["tflops"] = r["flops"] / r["kernel_us"] / 1e6
+                r["bound_share"] = r["bound_us"] / r["kernel_us"]
             # the plain backward computes dq, dk and dv together
             plain_bwd = graph_us(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), 2, 3)
             row["bwd_dq"]["plain_us"] = row["bwd_dkdv"]["plain_us"] = plain_bwd
@@ -237,17 +241,25 @@ def _attention_rows(torch) -> dict:
             del leaves
             # the library's backward alone: one aten call gives dq, dk and dv,
             # the function of the dQ and dK/dV kernels together. Its flash
-            # backward takes equal head counts only, so the GQA row has none.
-            row["sdpa_bwd_us"] = None
+            # backward takes equal head counts only, so at GQA it reads K and
+            # V repeated to H heads, as the JAX reference feeds its Pallas
+            # kernels (ray_tpu/models/llama.py:315-322); the repeat is made
+            # once, outside the timed graph (and its dk, dv are per q head)
+            aten = torch.ops.aten
             if H == KV:
-                aten = torch.ops.aten
-                (so, slse, cq, ck, mq, mk, seed, offset,
-                 _) = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
-                row["sdpa_bwd_us"] = graph_us(
-                    lambda: aten._scaled_dot_product_flash_attention_backward(
-                        dot, qt, kt, vt, so, slse, cq, ck, mq, mk, 0.0, True, seed, offset),
-                    20, 10)
-                del so, slse
+                kr, vr = kt, vt
+            else:
+                kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+            (so, slse, cq, ck, mq, mk, seed, offset,
+             _) = aten._scaled_dot_product_flash_attention(qt, kr, vr, 0.0, True)
+            row["sdpa_bwd_us"] = graph_us(
+                lambda: aten._scaled_dot_product_flash_attention_backward(
+                    dot, qt, kr, vr, so, slse, cq, ck, mq, mk, 0.0, True, seed, offset),
+                20, 10)
+            row["sdpa_bwd_kv"] = ("as given" if H == KV else
+                                  f"K, V repeated {H // KV}x to H heads outside the timed graph")
+            row["bwd_pair_us"] = row["bwd_dq"]["kernel_us"] + row["bwd_dkdv"]["kernel_us"]
+            del so, slse, kr, vr
         rows.append(row)
         del q, k, v, do, o, lse, dq, dk, dv, delta, o_p, lse_p, refs
         torch.cuda.empty_cache()
@@ -779,9 +791,12 @@ def main() -> int:
     # time (one aten backward call) stand on both rows beside the per-kernel
     # bounds, which count the S and dP that each kernel recomputes
     bwd_pair = {"bwd_function_bound_ms": bench["bwd_bound_us"] / 1e3,
-                "bwd_pair_ms": (bench["bwd_dq"]["kernel_us"] + bench["bwd_dkdv"]["kernel_us"]) / 1e3,
+                "bwd_pair_ms": bench["bwd_pair_us"] / 1e3,
+                "gqa3b_bwd_pair_ms": gqa3b["bwd_pair_us"] / 1e3,
+                "gqa3b_bwd_function_bound_ms": gqa3b["bwd_bound_us"] / 1e3,
                 "library_note": "aten._scaled_dot_product_flash_attention_backward: dq, dk, dv "
-                                "together, the function of both backward kernels"}
+                                "together, the function of both backward kernels; at gqa3b on "
+                                "K, V repeated to H heads outside the timed graph"}
     # the quant rows at w_gate/w_up's shape [8192, 3072] (56 of the 197
     # matrices); the quant phase line has every shape
     mlp_up = next(r for r in quant["timing"] if r["shape"] == [8192, 3072])
@@ -816,10 +831,13 @@ def main() -> int:
         "bound_by": bench[key]["bound_by"],
         "library_ms": lib_us / 1e3 if lib_us is not None else None,
         **(bwd_pair if key.startswith("bwd") else {}),
-        **({"tflops": bench["fwd"]["tflops"], "gqa3b_ms": gqa3b["fwd"]["kernel_us"] / 1e3,
-            "gqa3b_bound_ms": gqa3b["fwd"]["bound_us"] / 1e3,
-            "gqa3b_library_ms": gqa3b["sdpa_fwd_us"] / 1e3, "gqa3b_tflops": gqa3b["fwd"]["tflops"]}
-           if key == "fwd" else {}),
+        "tflops": bench[key]["tflops"],
+        "bound_share": bench[key]["bound_share"],
+        "gqa3b_ms": gqa3b[key]["kernel_us"] / 1e3,
+        "gqa3b_bound_ms": gqa3b[key]["bound_us"] / 1e3,
+        "gqa3b_library_ms": gqa3b["sdpa_fwd_us" if key == "fwd" else "sdpa_bwd_us"] / 1e3,
+        "gqa3b_tflops": gqa3b[key]["tflops"],
+        "gqa3b_bound_share": gqa3b[key]["bound_share"],
     } for name, key, replaces, lib_us in attention_kernels] + [{
         "name": name,
         "route": "cuda",

@@ -10,8 +10,9 @@ and flash kernels, forward and backward). ``flash_attention(q, k, v)`` is a
 - a CPU tensor goes to ``flash_attention_fwd_plain`` /
   ``flash_attention_bwd_plain`` (fp32 math);
 - a CUDA tensor goes to the kernels and nowhere else: the forward in
-  ``csrc/flash_attention_fwd.cu`` (TMA, wgmma, warp-specialised), the
-  backward dQ and dK/dV in ``csrc/flash_attention.cu``. A CUDA tensor the
+  ``csrc/flash_attention_fwd.cu``, the backward dQ and dK/dV in
+  ``csrc/flash_attention.cu`` (all three TMA, wgmma, warp-specialised and
+  persistent, on the helpers of ``csrc/hopper.cuh``). A CUDA tensor the
   kernels do not take (dtype other than bf16, head_dim other than 64 or
   128, a layout whose rows are not 16-byte aligned, differing lengths)
   raises, as does a failed build, tensor-map encoding or launch.
@@ -112,8 +113,8 @@ def _lib():
     from ray_tpu_torch._native.build import load
 
     lib = load("flash_attention")
-    lib.rt_flash_attn_bwd_dq.argtypes = [_P] * 8 + _TAIL
-    lib.rt_flash_attn_bwd_dkdv.argtypes = [_P] * 8 + _TAIL
+    lib.rt_flash_attn_bwd_dq.argtypes = [_P] * 9 + _TAIL
+    lib.rt_flash_attn_bwd_dkdv.argtypes = [_P] * 9 + _TAIL
     for fn in (lib.rt_flash_attn_bwd_dq, lib.rt_flash_attn_bwd_dkdv):
         fn.restype = ctypes.c_int
     return lib
@@ -132,8 +133,8 @@ def _fwd_lib():
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
     """Rows of head_dim elements must be contiguous and 16-byte aligned:
-    the backward kernels copy them in 16-byte pieces, and the forward's TMA
-    tensor maps need 16-byte strides and a 16-byte aligned start."""
+    the kernels' TMA tensor maps need 16-byte strides and a 16-byte aligned
+    start."""
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(
             f"flash_attention kernel: {name} must have a unit head_dim stride, other "
@@ -242,10 +243,12 @@ def flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, sm_scale=None, causal: bo
     if q.numel() == 0:
         return dq, delta
     lse = lse.contiguous()
+    next_work = torch.zeros((), dtype=torch.int32, device=q.device)  # the scheduler's counter
     with torch.cuda.device(q.device):
         err = _lib().rt_flash_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _strides(q=q, k=k, v=v, o=o, do=do, dq=dq),
+            lse.data_ptr(), delta.data_ptr(), next_work.data_ptr(),
+            _strides(q=q, k=k, v=v, o=o, do=do, dq=dq),
             B, T, H, k.shape[2], D, scale, int(causal), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_if(err, "backward dQ")
@@ -265,10 +268,12 @@ def flash_attention_bwd_dkdv_kernel(q, k, v, lse, delta, do, sm_scale=None, caus
     if q.numel() == 0:
         return dk.zero_(), dv.zero_()
     lse, delta = lse.contiguous(), delta.contiguous()
+    next_work = torch.zeros((), dtype=torch.int32, device=q.device)  # the scheduler's counter
     with torch.cuda.device(q.device):
         err = _lib().rt_flash_attn_bwd_dkdv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _strides(q=q, k=k, v=v, do=do, dk=dk, dv=dv),
+            lse.data_ptr(), delta.data_ptr(), next_work.data_ptr(),
+            _strides(q=q, k=k, v=v, do=do, dk=dk, dv=dv),
             B, T, H, k.shape[2], D, scale, int(causal), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_if(err, "backward dK/dV")

@@ -159,3 +159,47 @@ def test_forward_launch_errors_name_their_cause(err, message):
     _raise_if(0, "forward")  # success raises nothing
     with pytest.raises(RuntimeError, match=message):
         _raise_if(err, "forward")
+
+
+@pytest.mark.parametrize("err,message", [
+    (-1, "no cuTensorMapEncodeTiled"),
+    (-1001, "refused a tensor map: CUresult 1"),
+    (700, "launch failed: cudaError 700"),
+])
+@pytest.mark.parametrize("kernel", ["dq", "dkdv"])
+def test_backward_launch_errors_name_their_cause(kernel, err, message, monkeypatch):
+    """The backward wrappers hand what their C entry point returns to
+    _raise_if and count no launch when it fails: the entry point is stubbed
+    to return `err`, and the device checks and stream are stubbed so that
+    CPU tensors reach it."""
+    import contextlib
+    import importlib
+    import types
+
+    # the module (ray_tpu_torch.ops re-exports a function of the same name)
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    calls = []
+
+    def entry(*args):
+        calls.append(len(args))
+        return err
+
+    lib = types.SimpleNamespace(rt_flash_attn_bwd_dq=entry, rt_flash_attn_bwd_dkdv=entry)
+    monkeypatch.setattr(fa, "_lib", lambda: lib)
+    monkeypatch.setattr(fa, "_check", lambda q, k, v: None)
+    monkeypatch.setattr(fa, "_check_rows", lambda name, t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    q, k, v, do = (t.bfloat16() for t in _t(*_qkv((1, 8, 2, 1, 64), seed=7)))
+    o, lse = flash_attention_fwd_plain(q, k, v)
+    reset_launches()
+    what = {"dq": "backward dQ", "dkdv": "backward dK/dV"}[kernel]
+    with pytest.raises(RuntimeError, match=f"flash_attention {what}.*{message}"):
+        if kernel == "dq":
+            fa.flash_attention_bwd_dq_kernel(q, k, v, o, lse, do)
+        else:
+            fa.flash_attention_bwd_dkdv_kernel(q, k, v, lse, torch.zeros_like(lse), do)
+    # 9 pointers, strides, B, T, H, KV, D, scale, causal, stream
+    assert calls == [18]
+    assert (fa.flash_attention.launches_bwd_dq, fa.flash_attention.launches_bwd_dkdv) == (0, 0)

@@ -200,6 +200,53 @@ def test_flash_attention_refuses_on_card():
         flash_attention(q, k.cpu(), v)
 
 
+# the backward's tiles: dQ takes 128 query rows an item against 64-key
+# tiles, dK/dV 128 keys an item against 64-row Q tiles. T at both tiles'
+# edges, causal and full, G 1, 3 and 4, D 64 and 128
+BWD_EDGE_CASES = [(T, causal, G, D) for T in (63, 64, 65, 127, 128, 129, 320)
+                  for causal in (True, False) for G in (1, 3, 4) for D in (64, 128)]
+
+
+@pytest.mark.parametrize("T,causal,G,D", BWD_EDGE_CASES,
+                         ids=[f"T{T}-{'causal' if c else 'full'}-G{G}-D{D}"
+                              for T, c, G, D in BWD_EDGE_CASES])
+def test_flash_attention_bwd_tile_edges_on_card(T, causal, G, D):
+    _need_card()
+    q, k, v, do = _attn_inputs((2, T, 2 * G, 2, D), seed=3 * T + G + D)
+    o, lse = flash_attention_fwd_kernel(q, k, v, causal=causal)
+    reset_launches()
+    got = flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkdv) == (1, 1)
+    for what, x, want in zip(("dq", "dk", "dv"), got,
+                             flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)):
+        _assert_agree(x, want, what)
+
+
+def test_flash_attention_bwd_runs_several_waves_on_card():
+    """B x H x T/128 = 1,024 dQ items and B x KV x T/128 = 512 dK/dV items,
+    above 3 x 132: each of the 132 persistent CTAs of either kernel takes
+    several from its counter."""
+    _need_card()
+    q, k, v, do = _attn_inputs((8, 1024, 16, 8, 128), seed=8)
+    o, lse = flash_attention_fwd_kernel(q, k, v)
+    for what, got, want in zip(("dq", "dk", "dv"), flash_attention_bwd_kernel(q, k, v, o, lse, do),
+                               flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        _assert_agree(got, want, what)
+
+
+def test_flash_attention_bwd_is_deterministic_on_card():
+    """No atomics and no order-dependent sums: two calls on the same inputs
+    give the same bits, whichever CTA takes which item."""
+    _need_card()
+    q, k, v, do = _attn_inputs((4, 1024, 24, 8, 128), seed=9)
+    o, lse = flash_attention_fwd_kernel(q, k, v)
+    first = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    second = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    for what, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), what
+
+
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
 def test_train_forward_launch_counts_on_card(remat):
     """Through loss_fn and its backward: remat re-runs each layer's forward
