@@ -11,7 +11,11 @@ Phases, one JSON line each; any failing phase exits non-zero:
   2. build    — nvcc builds every kernel from ray_tpu_torch/ops/csrc/, one
                 process per source, in parallel.
   3. kernels  — each kernel against its plain PyTorch version on the card:
-                RMSNorm at the serving path's shapes; the three
+                RMSNorm at the serving path's shapes, and at the decode
+                shape [16, 3072] with the residual add fused in (s and y
+                bit-equal to the eager add then the unfused kernel; its
+                time beside the plain twin's, the eager add + kernel's and
+                its byte bound); the three
                 flash-attention kernels (forward: TMA, wgmma, warp-
                 specialised; backward dQ, backward dK/dV) at the train
                 bench shape, the 3B GQA head shape, a ragged T and T = 1,
@@ -33,7 +37,16 @@ Phases, one JSON line each; any failing phase exits non-zero:
   5. serve    — ray_tpu_torch.llm.LLMServer serves llama3.2-3b (full depth,
                 seeded random weights) with the fused RMSNorm, greedy and
                 seeded sampled requests; kernel launch counts are reset
-                just before and read just after.
+                just before and read just after; every decode step is a
+                CUDA-graph replay (decode_graph_replays == decode_steps).
+  5b. decode_graph — the engine's DecodeGraph at full 3B width and depth
+                (well-conditioned weights, 16 rows at 96 positions): 8
+                graphed steps against 8 eager decode_steps on cloned caches
+                (greedy tokens equal; the logits' max difference reported),
+                a broken control (replays without the next tokens copied
+                in: the tokens must differ), then the graphed step's device
+                ms, kernels and idle share beside the eager step's and the
+                step's byte bound.
   6. numerics — a 2-layer model at full 3B width on the card through the
                 kernel (fp32 and bf16), against the same weights in fp32
                 through the plain path on the CPU, and a broken control
@@ -125,14 +138,61 @@ def phase_kernels(torch, card: str) -> dict:
                 launches=rmsnorm.launches - before,
             )
         rows_out.append({"case": tag, **row})
+    fused = _fused_row(torch, gen)
     attention = _attention_rows(torch)
-    emit({"phase": "kernels", "card": card, "rmsnorm": rows_out, "attention": attention["rows"],
+    emit({"phase": "kernels", "card": card, "rmsnorm": rows_out, "rmsnorm_fused": fused,
+          "attention": attention["rows"],
           "attention_limits": attention["limits"],
           "timing": "kernel_us/plain_us/library_us: device time per call from a "
                     "replayed CUDA graph; *_call_us: eager calls back to back; "
                     "sdpa_fwd_bwd_us: eager calls, CUDA events; sdpa_bwd_us: the aten "
                     "flash backward alone from a replayed CUDA graph"})
-    return {"max_abs_err": max_err, "rows": rows_out, "attention": attention}
+    return {"max_abs_err": max_err, "rows": rows_out, "fused": fused, "attention": attention}
+
+
+def _fused_row(torch, gen) -> dict:
+    """add_rmsnorm at the decode shape [16, 3072] bf16: s = x + r and y =
+    rmsnorm(s) in one launch, bit-equal (tolerance 0) to the eager add then
+    the unfused kernel, and y within the bf16 limits of the plain twin."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import add_rmsnorm, rmsnorm
+    from ray_tpu_torch.ops.rmsnorm import add_rmsnorm_plain
+    from ray_tpu_torch.tools.decode_profile import HBM_BYTES_PER_S, graph_us, timed
+
+    shape = (16, 3072)
+    x, r = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    w = (1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")).bfloat16()
+    before = rmsnorm.launches
+    s, y = add_rmsnorm(x, r, w, 1e-5)
+    torch.cuda.synchronize()
+    if rmsnorm.launches != before + 1:
+        raise AssertionError("add_rmsnorm did not launch the kernel once")
+    s_ref = x + r
+    y_ref = rmsnorm(s_ref, w, 1e-5)
+    s_p, y_p = add_rmsnorm_plain(x, r, w, 1e-5)
+    bit_equal = (torch.equal(s.view(torch.int16), s_ref.view(torch.int16))
+                 and torch.equal(y.view(torch.int16), y_ref.view(torch.int16)))
+    if not bit_equal:
+        raise AssertionError("add_rmsnorm differs from the eager add then the kernel")
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=2**-7, atol=1e-6)
+    if not torch.equal(s, s_p):
+        raise AssertionError("add_rmsnorm's s differs from the plain twin's")
+    # x and r read, s and y written, w read once
+    nbytes = 4 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    lib = (lambda: F.rms_norm(x + r, (shape[-1],), w, 1e-5)) if hasattr(F, "rms_norm") else None
+    return {
+        "shape": list(shape), "dtype": "bfloat16", "bit_equal_to_add_then_kernel": bit_equal,
+        "max_abs_err": (y.float() - y_p.float()).abs().max().item(), "rtol": 2**-7, "atol": 1e-6,
+        "bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+        "kernel_us": graph_us(lambda: add_rmsnorm(x, r, w, 1e-5)),
+        "plain_us": graph_us(lambda: add_rmsnorm_plain(x, r, w, 1e-5)),
+        "add_then_kernel_us": graph_us(lambda: rmsnorm(x + r, w, 1e-5)),
+        "add_then_library_us": graph_us(lib) if lib else None,
+        "kernel_call_us": timed(lambda: add_rmsnorm(x, r, w, 1e-5), 200, warmup=10)[1] * 1e3,
+        "library": "none computes add + norm in one call; add_then_library_us is torch's add "
+                   "then F.rms_norm",
+    }
 
 
 # (B, T, H, KV, D): the train bench shape, llama3.2-3b's GQA head shape at
@@ -512,8 +572,10 @@ def phase_serve(torch, card: str) -> dict:
         launches = rmsnorm.launches
         stats = eng.get_stats()
         delta = {k: stats[k] - stats0[k] for k in
-                 ("decode_programs", "decode_steps", "prefill_mid_chunks", "prefill_final_chunks",
-                  "decode_device_ms", "decode_programs_timed")}
+                 ("decode_programs", "decode_steps", "decode_graph_replays", "prefill_mid_chunks",
+                  "prefill_final_chunks", "decode_device_ms", "decode_programs_timed")}
+        if delta["decode_graph_replays"] != delta["decode_steps"]:
+            raise AssertionError(f"decode steps that were no graph replay: {delta}")
         n_norms = 2 * L_3B + 1
         expected = (n_norms * (delta["decode_steps"] + delta["prefill_final_chunks"])
                     + (n_norms - 1) * delta["prefill_mid_chunks"])
@@ -533,6 +595,8 @@ def phase_serve(torch, card: str) -> dict:
             "ttft_ms_p50": float(np.percentile(ttft, 50)),
             "ttft_ms_p99": float(np.percentile(ttft, 99)),
             "decode_program_ms_mean": delta["decode_device_ms"] / delta["decode_programs_timed"],
+            "decode_step_ms_mean": (delta["decode_device_ms"] / delta["decode_programs_timed"]
+                                    / cfg.engine.decode_steps),
             "decode_steps_per_program": cfg.engine.decode_steps,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "decode_step_bytes": weight_bytes + kv_bytes,
@@ -546,6 +610,99 @@ def phase_serve(torch, card: str) -> dict:
         return result
     finally:
         eng.shutdown()
+
+
+def phase_decode_graph(torch, card: str) -> dict:
+    """The decode step as the engine runs it on the card, one CUDA graph
+    (DecodeGraph), against eager decode_step: llama3.2-3b at full width and
+    depth with well-conditioned weights, 16 rows prefilled with 96 tokens in
+    a 1024-slot cache, cloned for the eager run and the control. Limits:
+    8 graphed steps, each step's greedy tokens copied into the graph's
+    input, give the eager steps' tokens exactly (the logits' max difference
+    is reported); RMSNorm counts 2L+1 launches a replay; a broken control,
+    8 replays without the copy, gives other tokens. Then the graphed step's
+    device time, kernels and idle share (profiler) beside the eager step's
+    and the step's weight + KV byte bound."""
+    from ray_tpu_torch.llm.engine import DecodeGraph
+    from ray_tpu_torch.models.llama import LlamaConfig, decode_step, init_kv_cache, prefill
+    from ray_tpu_torch.ops import rmsnorm
+    from ray_tpu_torch.tools.decode_profile import HBM_BYTES_PER_S, _profile, timed
+
+    cfg = LlamaConfig.llama32_3b(max_seq_len=1024, fused_rmsnorm=True)
+    params = _conditioned_params(torch, cfg, seed=5)
+    B, S, steps = 16, 1024, 8
+    prompt = torch.randint(0, cfg.vocab_size, (B, 96), generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32).cuda()
+    with torch.inference_mode():
+        cache = init_kv_cache(cfg, B, S, "cuda")
+        logits, _ = prefill(params, cache, prompt, cfg)
+        first = logits.argmax(-1).to(torch.int32)
+        eager_cache = {k: v.clone() for k, v in cache.items()}
+        control_cache = {k: v.clone() for k, v in cache.items()}
+        tokens = first.clone()
+        graph = DecodeGraph(params, cache, tokens, cfg)
+
+        tok, eager = first, []
+        for _ in range(steps):
+            lg, _ = decode_step(params, eager_cache, tok, cfg)
+            tok = lg.argmax(-1).to(torch.int32)
+            eager.append((lg.clone(), tok))
+
+        def replays(copy: bool) -> list:
+            tokens.copy_(first)
+            out = []
+            for _ in range(steps):
+                lg = graph.replay()
+                nxt = lg.argmax(-1).to(torch.int32)
+                if copy:
+                    tokens.copy_(nxt)
+                out.append((lg.clone(), nxt))
+            return out
+
+        rmsnorm.launches = 0
+        graphed = replays(True)
+        launches = rmsnorm.launches
+        for k in cache:
+            cache[k].copy_(control_cache[k])
+        control = replays(False)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g[1], e[1]) for g, e in zip(graphed, eager))
+        control_equal = all(torch.equal(c[1], e[1]) for c, e in zip(control, eager))
+        max_diff = max((g[0] - e[0]).abs().max().item() for g, e in zip(graphed, eager))
+        del eager_cache, control_cache, graphed, control, eager
+
+        weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+        kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+        graph_host_ms, graph_span_ms = timed(graph.replay, 20, warmup=3)
+        graph_prof = _profile(graph.replay, 10)
+        eager_host_ms, eager_span_ms = timed(lambda: decode_step(params, cache, tokens, cfg), 10)
+        eager_prof = _profile(lambda: decode_step(params, cache, tokens, cfg), 3)
+    out = {
+        "phase": "decode_graph", "card": card, "model": "llama3.2-3b", "batch": B, "stripe": S,
+        "steps": steps, "tokens_equal": equal, "logits_max_abs_diff": max_diff,
+        "control_tokens_equal": control_equal, "rmsnorm_launches": launches,
+        "rmsnorm_launches_expected": (2 * cfg.n_layers + 1) * steps,
+        "step_bound_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+        "graph": {"host_ms": graph_host_ms, "span_ms": graph_span_ms, **graph_prof},
+        "eager": {"host_ms": eager_host_ms, "span_ms": eager_span_ms, **eager_prof},
+        "timing": "span_ms: CUDA events over back-to-back steps; idle_share and kernel "
+                  "times from torch.profiler",
+    }
+    emit(out)
+    del graph, params, cache
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError(f"graphed decode tokens differ from eager (max logit diff {max_diff})")
+    if launches != out["rmsnorm_launches_expected"]:
+        raise AssertionError(f"rmsnorm launches {launches} over {steps} replays")
+    if control_equal:
+        raise AssertionError("decode_graph: the broken control gave the eager tokens")
+    # the profiler's own count of RMSNorm kernels a step, graphed and eager
+    for mode in ("graph", "eager"):
+        seen = out[mode]["rmsnorm_launches_per_call"]
+        if seen != 2 * cfg.n_layers + 1:
+            raise AssertionError(f"decode_graph: the {mode} step's trace holds {seen} RMSNorm kernels")
+    return out
 
 
 def _conditioned_params(torch, cfg, seed: int) -> dict:
@@ -773,12 +930,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = timed_phase("serve", phase_serve)
     torch.cuda.empty_cache()
+    timed_phase("decode_graph", phase_decode_graph)
     timed_phase("numerics", phase_numerics)
     train = timed_phase("train", phase_train)
     timed_phase("train_numerics", phase_train_numerics)
     emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
+    fused = k["fused"]
     bench = next(r for r in k["attention"]["rows"] if r["case"] == "bench")
     gqa3b = next(r for r in k["attention"]["rows"] if r["case"] == "gqa3b")
     attention_kernels = [
@@ -818,6 +977,12 @@ def main() -> int:
         "bound_ms": decode["bound_us"] / 1e3,
         "bound_by": "bytes",
         "library_ms": decode["library_us"] / 1e3 if decode["library_us"] is not None else None,
+        # the residual add fused in (add_rmsnorm) at the same shape
+        "fused_ms": fused["kernel_us"] / 1e3,
+        "fused_bound_ms": fused["bound_us"] / 1e3,
+        "fused_plain_ms": fused["plain_us"] / 1e3,
+        "fused_add_then_kernel_ms": fused["add_then_kernel_us"] / 1e3,
+        "fused_bit_equal": fused["bit_equal_to_add_then_kernel"],
     }] + [{
         "name": name,
         "route": "cuda",

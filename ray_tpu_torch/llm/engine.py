@@ -11,7 +11,11 @@ surface and the same host logic:
   pool slot;
 - a bucket-aligned prefix cache;
 - K decode steps per program (``decode_steps``, a Python loop here where
-  JAX scans) with up to ``decode_runahead`` programs in flight;
+  JAX scans) with up to ``decode_runahead`` programs in flight. On CUDA
+  each pool's decode step is one CUDA graph (``DecodeGraph``), captured
+  when the pool is built and replayed once per step, as JAX runs the step
+  as one compiled program; sampling runs eagerly between replays. On the
+  CPU the step runs eagerly;
 - greedy / top-k / temperature sampling on the device with one
   ``torch.Generator`` per slot, seeded per request, so a seeded request
   draws the same tokens whatever shares its batch.
@@ -47,6 +51,7 @@ from ray_tpu_torch.llm.config import LLMConfig, SamplingParams, resolve_llama_co
 from ray_tpu_torch.llm.pacing import TokenPacer
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ray_tpu_torch.models.llama import decode_step, init_kv_cache, init_params, prefill
+from ray_tpu_torch.ops import add_launch_counts, launch_counts
 
 logger = logging.getLogger(__name__)
 
@@ -125,6 +130,48 @@ class _Fetch:
         return self.start.elapsed_time(self.event)
 
 
+class DecodeGraph:
+    """One ``decode_step`` over a fixed cache, captured as a CUDA graph.
+
+    ``tokens`` [B] int32 is the graph's input and ``logits`` [B, V] fp32 its
+    output. Both stay at fixed addresses, as do the params and the cache the
+    graph reads: write the next tokens with ``tokens.copy_`` and read
+    ``logits`` before the next replay (stream order does both).
+
+    The warm-up calls before the capture really run: they write K/V at the
+    cache's positions ``length`` onwards, where no live entry is, and
+    ``length`` is restored after them. The capture records kernels without
+    running them, so the launches the kernel wrappers counted during it are
+    taken back, and each replay adds them again: the counters
+    (``ops.launch_counts``) count kernels that ran. A capture or replay
+    that fails raises."""
+
+    def __init__(self, params, cache, tokens, cfg):
+        device = tokens.device
+        length = cache["length"].clone()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                decode_step(params, cache, tokens, cfg)
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.logits, _ = decode_step(params, cache, tokens, cfg)
+        after = launch_counts()
+        # kernel name -> launches of one replay
+        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        add_launch_counts({k: -n for k, n in self.launches.items()})
+        cache["length"].copy_(length)
+
+    def replay(self) -> torch.Tensor:
+        """One decode step: the logits of ``tokens`` at each row's position."""
+        self.graph.replay()
+        add_launch_counts(self.launches)
+        return self.logits
+
+
 class _Pool:
     """One KV stripe class: ``n_slots`` decode slots of ``stripe_len``
     positions each. Short requests route to short pools so they never pin
@@ -140,8 +187,10 @@ class _Pool:
         # per-slot sampling generators, replaced at each admission
         self.gens: list[Optional[torch.Generator]] = [None] * n_slots
         # device-resident next-token inputs: decode programs chain on these
-        # without a host round trip (run-ahead)
-        self.dev_tokens: Optional[torch.Tensor] = None  # [n_slots] int32
+        # without a host round trip (run-ahead); the decode graph's input,
+        # so only ever written in place
+        self.dev_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+        self.graph: Optional[DecodeGraph] = None  # CUDA only
         self.admitting: dict[int, _Admission] = {}
         # launched work whose results are still on their way to the host, in
         # launch order: ("first", slot, req, fetch) for a final prefill
@@ -154,6 +203,10 @@ class _Pool:
 
 
 class TorchEngine:
+    """On CUDA the decode graphs read ``params`` and each pool's cache at
+    the addresses they had when the engine was built: update weights in
+    place (``copy_``). Assigning ``params`` raises once a graph exists."""
+
     def __init__(self, config: LLMConfig, device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
         self.config = config
@@ -165,6 +218,8 @@ class TorchEngine:
         self.tokenizer = get_tokenizer(config.model.tokenizer)
         self._build_model()
         self._build_pools()
+        for pool in self._pools:
+            self._capture(pool)
         # one static top-K for the decode sampler AND the first-token sampler
         self._top_k_static = min(64, self.model_cfg.vocab_size)
         self._ranks = torch.arange(self._top_k_static, device=self.device)
@@ -182,7 +237,7 @@ class TorchEngine:
         # work counters (read by get_stats; the kernel launch count of a run
         # follows from them)
         self._counts = {
-            "decode_programs": 0, "decode_steps": 0,
+            "decode_programs": 0, "decode_steps": 0, "decode_graph_replays": 0,
             "prefill_mid_chunks": 0, "prefill_final_chunks": 0,
             # device time of decode programs whose results reached the host
             # (CUDA events; stays 0 on the CPU)
@@ -230,6 +285,19 @@ class TorchEngine:
 
     # -- model setup --------------------------------------------------------
 
+    @property
+    def params(self) -> dict:
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        if any(pool.graph is not None for pool in getattr(self, "_pools", ())):
+            raise RuntimeError(
+                "the decode graphs read the params they were captured with: update the "
+                "tensors in place (copy_) instead of assigning new ones"
+            )
+        self._params = params
+
     def _build_model(self):
         mc, ec = self.config.model, self.config.engine
         self.model_cfg = resolve_llama_config(mc, ec, min_vocab=self.tokenizer.vocab_size)
@@ -272,13 +340,31 @@ class TorchEngine:
             toks[row : row + 1].copy_(idxs[row].gather(0, choice))
         return toks
 
+    def _capture(self, pool: _Pool) -> None:
+        """On CUDA, the pool's decode step as one graph over its cache, which
+        must hold no live request (it is new, or reset by ``_fail_pool``)."""
+        if self.device.type != "cuda":
+            return
+        with torch.cuda.device(self.device), torch.inference_mode():
+            pool.graph = DecodeGraph(self.params, pool.cache, pool.dev_tokens, self.model_cfg)
+
     def _decode(self, pool: _Pool, hot: list) -> torch.Tensor:
-        """K decode steps chained on device-resident tokens -> [K, slots]."""
-        toks = pool.dev_tokens
+        """K decode steps chained on the pool's device-resident tokens ->
+        [K, slots]: on CUDA a replay of the pool's graph each, on the CPU
+        an eager ``decode_step``. Each step's tokens are sampled from its
+        logits before the next step overwrites them."""
+        cuda = self.device.type == "cuda"
+        if cuda and pool.graph is None:
+            raise RuntimeError("this pool has no decode graph: its capture failed")
         outs = []
         for _ in range(self._decode_n_steps):
-            logits, _ = decode_step(self.params, pool.cache, toks, self.model_cfg)
+            if cuda:
+                logits = pool.graph.replay()
+                self._counts["decode_graph_replays"] += 1
+            else:
+                logits, _ = decode_step(self.params, pool.cache, pool.dev_tokens, self.model_cfg)
             toks = self._sample(logits, hot)
+            pool.dev_tokens.copy_(toks)
             outs.append(toks)
         return torch.stack(outs)
 
@@ -624,7 +710,6 @@ class TorchEngine:
                     start = torch.cuda.Event(enable_timing=True)
                     start.record()
                 out = self._decode(pool, hot)
-                pool.dev_tokens = out[-1].clone()
                 pool.inflight.append(("decode", active, _Fetch(out, start)))
                 self._counts["decode_programs"] += 1
                 self._counts["decode_steps"] += self._decode_n_steps
@@ -647,8 +732,16 @@ class TorchEngine:
             self._fail_admission(pool, adm, e)
         pool.inflight.clear()
         pool.cache = init_kv_cache(self.model_cfg, pool.n_slots, pool.stripe_len, self.device)
-        pool.dev_tokens = torch.zeros((pool.n_slots,), dtype=torch.int32, device=self.device)
+        pool.dev_tokens.zero_()
         pool.gens = [None] * pool.n_slots
+        # a new graph over the fresh cache (the capture synchronises the
+        # device before the old graph is dropped); if it fails, the pool's
+        # decodes raise: it never decodes eagerly on the card
+        try:
+            self._capture(pool)
+        except Exception:  # noqa: BLE001 — reported; the pool stays unusable
+            pool.graph = None
+            logger.exception("decode graph capture failed")
 
     def _drain(self) -> bool:
         """Hand arrived results (first tokens, decode programs) to their
@@ -700,10 +793,6 @@ class TorchEngine:
             torch.cuda.set_device(self.device)
         # inference mode is thread-local: enter it on the loop's own thread
         with torch.inference_mode():
-            for pool in self._pools:
-                pool.dev_tokens = torch.zeros(
-                    (pool.n_slots,), dtype=torch.int32, device=self.device
-                )
             while not self._stop.is_set():
                 progressed = self._pull_waiting()
                 progressed |= self._advance_admissions()

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy, matmul_fp32_out
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.rmsnorm import add_rmsnorm
 from ray_tpu_torch.parallel.ring_attention import dense_attention
 
 
@@ -457,8 +458,19 @@ def _decode_forward(
     ki = torch.arange(KV, device=dev)[None, :, None]
     tables = _rope_tables(positions, D, cfg.rope_theta)
 
+    # Each norm after the first follows a residual add. With the fused norm
+    # the two are one add_rmsnorm (s = x + delta, h = rmsnorm(s)): the
+    # layer's MLP norm after its attention residual, the next layer's
+    # attention norm after this layer's MLP residual, and the final norm
+    # unless logits_at gathers between the add and the norm.
+    def add_norm(x, delta, w):
+        if fused:
+            return add_rmsnorm(x, delta, w, eps)
+        x = x + delta
+        return x, _rmsnorm(x, w, eps, fused)
+
+    h = _rmsnorm(x, params["attn_norm"][0], eps, fused)
     for l in range(cfg.n_layers):
-        h = _rmsnorm(x, params["attn_norm"][l], eps, fused)
         q = (h @ params["wq"][l].reshape(e, -1)).view(B, T, cfg.n_heads, D)
         k = (h @ params["wk"][l].reshape(e, -1)).view(B, T, KV, D)
         v = (h @ params["wv"][l].reshape(e, -1)).view(B, T, KV, D)
@@ -474,11 +486,12 @@ def _decode_forward(
         s = s.masked_fill(~seq_mask[:, None, :, None, :], -1e30)
         w = torch.softmax(s.float(), dim=-1).to(x.dtype)
         attn = torch.einsum("bktgs,bksd->btkgd", w, cv).reshape(B, T, cfg.n_heads * D)
-        x = x + attn @ params["wo"][l].reshape(-1, e)
+        x, h = add_norm(x, attn @ params["wo"][l].reshape(-1, e), params["mlp_norm"][l])
 
-        h = _rmsnorm(x, params["mlp_norm"][l], eps, fused)
         ff = F.silu(h @ params["w_gate"][l]) * (h @ params["w_up"][l])
-        x = x + ff @ params["w_down"][l]
+        delta = ff @ params["w_down"][l]
+        if l + 1 < cfg.n_layers:
+            x, h = add_norm(x, delta, params["attn_norm"][l + 1])
 
     cache["length"] += T
     if not with_logits:
@@ -486,8 +499,10 @@ def _decode_forward(
     if logits_at is not None:
         # gather the one requested hidden state per sequence BEFORE the norm
         # and the vocab projection: [B, T, e] -> [B, 1, e]
-        x = x[torch.arange(B, device=dev), logits_at.long()][:, None]
-    x = _rmsnorm(x, params["final_norm"], eps, fused)
+        x = (x + delta)[torch.arange(B, device=dev), logits_at.long()][:, None]
+        x = _rmsnorm(x, params["final_norm"], eps, fused)
+    else:
+        _, x = add_norm(x, delta, params["final_norm"])
     unembed = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     # The JAX package asks XLA for fp32 logits from bf16 operands
     # (preferred_element_type). A bf16 matmul here accumulates in fp32 too,

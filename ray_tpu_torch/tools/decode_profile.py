@@ -4,13 +4,19 @@
 
 Builds llama3.2-3b (full depth, seeded random weights, fused RMSNorm) with
 a 16-slot x 1024-position cache, fills it to ~100 positions, then times
-``decode_step`` and one 256-token prefill chunk:
+``decode_step`` eagerly, the same step replayed as one CUDA graph (the
+engine's ``DecodeGraph``), and one 256-token prefill chunk:
 
 - host_ms: the Python call alone (kernels enqueued, no wait);
 - span_ms: CUDA events around the same call (device-side span, host gaps
   included);
 - from torch.profiler over a few steps: kernels per step, summed kernel
-  time per step, the device's idle share of the span, and the top kernels.
+  time per step, the device's idle share of the span, the RMSNorm
+  kernel's launches and time per step, and the top kernels.
+
+Run as a file (``PYTHONPATH=<checkout> python <checkout>/ray_tpu_torch/
+tools/decode_profile.py``) it measures that checkout, so two checkouts
+alternate in one call on one card.
 
 Prints one JSON line per measurement, each with the card's nvidia-smi name
 and power limit. ``chip_smoke.py`` shares this module's card query,
@@ -25,6 +31,7 @@ import time
 
 import torch
 
+from ray_tpu_torch.llm.engine import DecodeGraph
 from ray_tpu_torch.models.llama import LlamaConfig, decode_step, init_kv_cache, init_params, prefill
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet (at its 700 W limit)
@@ -102,7 +109,11 @@ def _profile(fn, reps: int) -> dict:
         acc[1] += e.time_range.elapsed_us()
     busy_us = sum(v[1] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    norm = [v for n, v in by_name.items() if "rmsnorm" in n]
+    norm_calls, norm_us = sum(v[0] for v in norm), sum(v[1] for v in norm)
     return {
+        "rmsnorm_launches_per_call": norm_calls / reps,
+        "rmsnorm_us_per_launch": norm_us / norm_calls if norm_calls else None,
         "device_events_per_call": len(kernels) / reps,
         "device_busy_ms_per_call": busy_us / 1e3 / reps,
         "profiled_wall_ms_per_call": wall * 1e3 / reps,
@@ -133,13 +144,26 @@ def main() -> None:
             decode_step(params, cache, toks, cfg)
             cache["length"] -= 1  # stay at the same positions from call to call
 
+        bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
         host_ms, span_ms = timed(step, 20)
         prof = _profile(step, 5)
         print(json.dumps({
             "measure": "decode_step", "card": name, "batch": B, "stripe": S,
-            "host_ms": host_ms, "span_ms": span_ms,
-            "byte_bound_ms": (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3, **prof,
+            "host_ms": host_ms, "span_ms": span_ms, "byte_bound_ms": bound_ms, **prof,
         }), flush=True)
+
+        # the same step as one graph replay; the decode attention reads all
+        # S slots whatever the length, so positions may advance here
+        length = cache["length"].clone()
+        graph = DecodeGraph(params, cache, toks, cfg)
+        host_ms, span_ms = timed(graph.replay, 100, warmup=3)
+        prof = _profile(graph.replay, 10)
+        cache["length"].copy_(length)
+        print(json.dumps({
+            "measure": "decode_step_graph", "card": name, "batch": B, "stripe": S,
+            "host_ms": host_ms, "span_ms": span_ms, "byte_bound_ms": bound_ms, **prof,
+        }), flush=True)
+        del graph
 
         one = init_kv_cache(cfg, 1, S, "cuda")
         chunk = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen, dtype=torch.int32).cuda()

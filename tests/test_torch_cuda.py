@@ -9,6 +9,8 @@ on a machine that has only PyTorch:
 (``--noconftest``: tests/conftest.py imports JAX for the rest of the suite.)
 """
 
+import time
+
 import pytest
 import torch
 
@@ -30,6 +32,7 @@ def _need_card():
         ((64, 128), torch.float32, torch.float32),
         ((7, 100), torch.float32, torch.bfloat16),  # unaligned width: scalar path
         ((3, 5, 4096), torch.bfloat16, torch.bfloat16),
+        ((2, 40000), torch.bfloat16, torch.bfloat16),  # wider than the registers hold
     ],
 )
 def test_kernel_matches_plain_on_card(shape, xdt, wdt):
@@ -359,3 +362,241 @@ def test_quant_refuses_on_card():
         dequantize_int8(q, s.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         quant.quantize_int8_kernel(x.t())
+
+
+# ---- the residual add fused into RMSNorm, and the decode step as a graph -----
+
+from ray_tpu_torch.llm import EngineConfig, LLMConfig, ModelConfig, SamplingParams  # noqa: E402
+from ray_tpu_torch.llm import engine as engine_mod  # noqa: E402
+from ray_tpu_torch.models.llama import decode_step, init_kv_cache, prefill  # noqa: E402
+from ray_tpu_torch.ops import add_rmsnorm  # noqa: E402
+
+# decode rows at 3B width, one row, a width no multiple of 8 (the scalar
+# path), a row wider than the registers hold (the general loop), leading
+# dims; bf16 and fp32 x with bf16 and fp32 w
+FUSED_CASES = [
+    ((16, 3072), torch.bfloat16, torch.bfloat16),
+    ((16, 3072), torch.bfloat16, torch.float32),
+    ((16, 3072), torch.float32, torch.float32),
+    ((16, 3072), torch.float32, torch.bfloat16),
+    ((1, 3072), torch.bfloat16, torch.bfloat16),
+    ((1, 3072), torch.float32, torch.float32),
+    ((16, 3000), torch.bfloat16, torch.bfloat16),
+    ((16, 3001), torch.float32, torch.bfloat16),
+    ((2, 40000), torch.bfloat16, torch.bfloat16),
+    ((2, 40000), torch.float32, torch.float32),
+    ((3, 5, 4096), torch.bfloat16, torch.float32),
+]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("shape,xdt,wdt", FUSED_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{str(x)[6:]}-w{str(w)[6:]}"
+                              for s, x, w in FUSED_CASES])
+def test_add_rmsnorm_bit_equal_to_add_then_kernel_on_card(shape, xdt, wdt):
+    """One launch computes s = x + r and y = rmsnorm(s): both bit for bit
+    (tolerance 0) what the eager add followed by the unfused kernel give."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x, r = (torch.randn(shape, generator=g, device="cuda").to(xdt) for _ in range(2))
+    w = (1.0 + 0.1 * torch.randn(shape[-1], generator=g, device="cuda")).to(wdt)
+    before = rmsnorm.launches
+    s, y = add_rmsnorm(x, r, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    s_ref = x + r
+    y_ref = rmsnorm(s_ref, w)
+    assert s.dtype == y.dtype == xdt
+    assert torch.equal(_bits(s), _bits(s_ref))
+    assert torch.equal(_bits(y), _bits(y_ref))
+
+
+def test_add_rmsnorm_refuses_on_card():
+    _need_card()
+    x = torch.randn(4, 64, device="cuda")
+    w = torch.ones(64, device="cuda")
+    for bad in (x.bfloat16(), x[:, :32], x.t().contiguous().t(), x.cpu()):
+        with pytest.raises(ValueError, match="r must be"):
+            add_rmsnorm(x, bad, w)
+
+
+def _graph_engine(**kw):
+    ek = dict(max_num_seqs=4, max_seq_len=64, prefill_buckets=(16, 32, 64), dtype="float32",
+              decode_steps=4, enable_prefix_caching=False)
+    ek.update(kw)
+    cfg = LLMConfig(model=ModelConfig(model_id="tiny", tokenizer="byte", seed=0,
+                                      model_kwargs={"fused_rmsnorm": True}),
+                    engine=EngineConfig(**ek))
+    return engine_mod.TorchEngine(cfg, device="cuda")
+
+
+def _eager_greedy(eng, prompt: str, n: int) -> list:
+    """The engine's request by hand, eagerly: a prefill at the engine's
+    bucket width into a one-row stripe, copied into slot 0 of a cache of
+    the pool's shape, then n - 1 eager decode_steps."""
+    cfg, pool = eng.model_cfg, eng._pools[0]
+    ids = eng.tokenizer.encode(prompt)
+    width = eng._bucket(len(ids))
+    toks = torch.zeros((1, width), dtype=torch.int32)
+    toks[0, : len(ids)] = torch.tensor(ids)
+    with torch.inference_mode():
+        one = init_kv_cache(cfg, 1, pool.stripe_len, "cuda")
+        logits, _ = prefill(eng.params, one, toks.cuda(), cfg,
+                            lengths=torch.tensor([len(ids)], device="cuda"))
+        cache = init_kv_cache(cfg, pool.n_slots, pool.stripe_len, "cuda")
+        cache["k"][:, 0].copy_(one["k"][:, 0])
+        cache["v"][:, 0].copy_(one["v"][:, 0])
+        cache["length"][0] = len(ids)
+        tok = torch.zeros(pool.n_slots, dtype=torch.int32, device="cuda")
+        tok[0] = logits[0].argmax()
+        out = [int(tok[0])]
+        for _ in range(n - 1):
+            logits, _ = decode_step(eng.params, cache, tok, cfg)
+            tok = logits.argmax(-1).to(torch.int32)
+            out.append(int(tok[0]))
+    return out
+
+
+def test_engine_decodes_by_graph_replay_on_card():
+    """Every decode step on the card is a replay of the pool's graph; its
+    greedy tokens equal an eager decode_step loop's on the same weights,
+    and the RMSNorm count is 2L+1 per replay plus the prefills' norms."""
+    _need_card()
+    eng = _graph_engine()
+    try:
+        assert all(p.graph is not None for p in eng._pools)
+        L = eng.model_cfg.n_layers
+        sp = SamplingParams(max_tokens=13, temperature=0.0, ignore_eos=True)
+        prompts = ["graph replay", "a longer prompt for the decode graph to serve"]
+        stats0 = eng.get_stats()
+        rmsnorm.launches = 0
+        outs = [eng.generate(p, sampling_params=sp) for p in prompts]
+        launches = rmsnorm.launches
+        stats = eng.get_stats()
+        delta = {k: stats[k] - stats0[k] for k in
+                 ("decode_steps", "decode_graph_replays", "prefill_final_chunks",
+                  "prefill_mid_chunks")}
+        assert delta["decode_graph_replays"] == delta["decode_steps"] > 0
+        assert launches == ((2 * L + 1) * (delta["decode_graph_replays"] + delta["prefill_final_chunks"])
+                            + 2 * L * delta["prefill_mid_chunks"])
+        for prompt, out in zip(prompts, outs):
+            assert out.token_ids == _eager_greedy(eng, prompt, 13)
+    finally:
+        eng.shutdown()
+
+
+def test_engine_recaptures_after_a_failed_replay_on_card():
+    """A replay that raises fails the pool's requests (no eager fallback);
+    the pool captures a new graph over its fresh cache and serves the same
+    tokens again."""
+    _need_card()
+    eng = _graph_engine()
+    try:
+        sp = SamplingParams(max_tokens=9, temperature=0.0, ignore_eos=True)
+        want = eng.generate("recapture me", sampling_params=sp).token_ids
+        pool = eng._pools[0]
+        old = pool.graph
+
+        def broken():
+            raise RuntimeError("forced replay failure")
+
+        old.replay = broken
+        with pytest.raises(RuntimeError, match="forced replay failure"):
+            eng.generate("recapture me", sampling_params=sp)
+        # the loop thread fails the request first, then resets and recaptures
+        deadline = time.monotonic() + 60
+        while pool.graph is old and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert pool.graph is not None and pool.graph is not old
+        steps0 = eng.get_stats()
+        assert eng.generate("recapture me", sampling_params=sp).token_ids == want
+        stats = eng.get_stats()
+        assert (stats["decode_graph_replays"] - steps0["decode_graph_replays"]
+                == stats["decode_steps"] - steps0["decode_steps"] > 0)
+    finally:
+        eng.shutdown()
+
+
+def test_engine_refuses_new_params_on_card():
+    """The graphs read the captured params: assigning new ones raises
+    (decoding would silently keep the old weights); in-place updates reach
+    the graph."""
+    _need_card()
+    eng = _graph_engine()
+    try:
+        sp = SamplingParams(max_tokens=6, temperature=0.0, ignore_eos=True)
+        with pytest.raises(RuntimeError, match="in place"):
+            eng.params = {k: v.clone() for k, v in eng.params.items()}
+        with torch.no_grad():
+            for v in eng.params.values():
+                v.mul_(-1.0)
+        assert eng.generate("new weights", sampling_params=sp).token_ids == _eager_greedy(
+            eng, "new weights", 6)
+    finally:
+        eng.shutdown()
+
+
+def test_engine_capture_failure_raises_on_card(monkeypatch):
+    """A capture that fails raises from the constructor; it never leaves an
+    engine that decodes eagerly on the card."""
+    _need_card()
+
+    class Refused:
+        def __init__(self, *a, **k):
+            raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(engine_mod, "DecodeGraph", Refused)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        _graph_engine()
+
+
+def test_decode_graph_equals_eager_steps_on_card():
+    """DecodeGraph alone, on a bf16 fused model: replays with the next
+    tokens copied in give eager decode_step's logits bit for bit on a
+    cloned cache; replays without the copy (a broken control) give other
+    tokens."""
+    _need_card()
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, fused_rmsnorm=True, n_layers=3)
+    params = init_params(cfg, seed=1, device="cuda")
+    B, S = 4, 32
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, 6), generator=gen, device="cuda", dtype=torch.int32)
+    with torch.inference_mode():
+        cache = init_kv_cache(cfg, B, S, "cuda")
+        logits, _ = prefill(params, cache, prompt, cfg)
+        first = logits.argmax(-1).to(torch.int32)
+        eager_cache = {k: v.clone() for k, v in cache.items()}
+        tokens = first.clone()
+        graph = engine_mod.DecodeGraph(params, cache, tokens, cfg)
+        assert torch.equal(cache["length"], eager_cache["length"])
+
+        def run(copy: bool):
+            tokens.copy_(first)
+            out = []
+            for _ in range(6):
+                lg = graph.replay()
+                nxt = lg.argmax(-1).to(torch.int32)
+                if copy:
+                    tokens.copy_(nxt)
+                out.append((lg.clone(), nxt))
+            return out
+
+        control_cache = {k: v.clone() for k, v in cache.items()}
+        got = run(True)
+        tok, want = first, []
+        for _ in range(6):
+            lg, _ = decode_step(params, eager_cache, tok, cfg)
+            tok = lg.argmax(-1).to(torch.int32)
+            want.append((lg, tok))
+        for (gl, gt), (wl, wt) in zip(got, want):
+            assert torch.equal(gt, wt)
+            assert torch.equal(gl, wl)
+        for k in cache:
+            cache[k].copy_(control_cache[k])
+        control = run(False)
+        assert not all(torch.equal(c[1], w[1]) for c, w in zip(control, want))

@@ -229,6 +229,34 @@ def test_llm_server_openai_shapes(pair):
     assert server.completions({"prompt": "hi", "_lora": "x"})["error"]["code"] == 404
 
 
+def test_cpu_engine_decodes_eagerly(pair):
+    """The decode graph is the card's: on the CPU no pool has one and every
+    decode step runs decode_step eagerly (the counter stays 0)."""
+    _, teng, _ = pair
+    teng.generate("eager on the cpu", sampling_params=GREEDY)
+    stats = teng.get_stats()
+    assert stats["decode_steps"] > 0 and stats["decode_graph_replays"] == 0
+    assert all(pool.graph is None for pool in teng._pools)
+
+
+def test_params_assignment_refused_once_a_graph_exists():
+    """A decode graph reads the params it was captured with, so assigning
+    new ones would decode with the old weights: it raises instead. With no
+    graph (the CPU) assignment stands."""
+    eng = TorchEngine(_engine_cfg(tcfgmod), device="cpu")
+    try:
+        params = dict(eng.params)
+        eng.params = params
+        assert eng.params is params
+        eng._pools[0].graph = object()  # stands in for a captured graph
+        with pytest.raises(RuntimeError, match="in place"):
+            eng.params = dict(params)
+        assert eng.params is params
+    finally:
+        eng._pools[0].graph = None
+        eng.shutdown()
+
+
 def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _engine_cfg(tcfgmod)

@@ -8,6 +8,8 @@ decode-vs-forward tests use for fp32 on the CPU: the two frameworks sum in
 different orders.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,93 @@ def test_prefill_and_decode_match_jax(fused):
         assert np.array_equal(_np(tlog.argmax(-1)), np.asarray(jnp.argmax(jlog, -1)))
         nxt = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
     _close_cache(tcache, jcache)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_add_norm_prefill_and_decode_match_jax(dtype):
+    """fused_rmsnorm=True, where each norm after a residual add is one
+    add_rmsnorm: a right-padded batch of two lengths (logits_at gathers
+    between the last add and the final norm), then 5 decode steps.
+
+    fp32: logits within TOL and greedy tokens equal, each package decoding
+    its own tokens. bf16: both packages round the residual stream to bf16
+    at every add; both decode JAX's greedy tokens (near-ties of random
+    weights may order differently in bf16), and the logits stay within
+    5e-2 of the logit scale (8 significant bits, and the port's LM head
+    rounds to bf16 before the upcast: ROADMAP Queue C)."""
+    fp32 = dtype == "float32"
+    jcfg = jl.LlamaConfig.tiny(fused_rmsnorm=True, dtype=jnp.float32 if fp32 else jnp.bfloat16)
+    tcfg = tl.LlamaConfig.tiny(fused_rmsnorm=True, dtype=getattr(torch, dtype))
+    jp, tp = _params(jcfg, 11)
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, jcfg.vocab_size, (2, 9)).astype(np.int32)
+    lengths = np.asarray([9, 4], np.int32)
+
+    def close(t, j):
+        t, j = _np(t.float()), np.asarray(j, np.float32)
+        if fp32:
+            np.testing.assert_allclose(t, j, **TOL)
+        else:
+            assert np.abs(t - j).max() <= 5e-2 * np.abs(j).max()
+
+    jlog, jc = jl.prefill(jp, jl.init_kv_cache(jcfg, 2, 32), jnp.asarray(prompt), jcfg,
+                          lengths=jnp.asarray(lengths))
+    tc = tl.init_kv_cache(tcfg, 2, 32, "cpu")
+    tlog, _ = tl.prefill(tp, tc, torch.from_numpy(prompt), tcfg,
+                         lengths=torch.from_numpy(lengths))
+    for _ in range(5):
+        close(tlog, jlog)
+        jnxt = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+        if fp32:
+            assert np.array_equal(_np(tlog.argmax(-1)), jnxt)
+        jlog, jc = jl.decode_step(jp, jc, jnp.asarray(jnxt), jcfg)
+        tlog, tc = tl.decode_step(tp, tc, torch.from_numpy(jnxt), tcfg)
+    close(tlog, jlog)
+    np.testing.assert_array_equal(_np(tc["length"]), np.asarray(jc["length"]))
+
+
+@pytest.mark.parametrize("call", ["decode", "prefill_final", "prefill_mid"])
+def test_fused_decode_forward_norm_wiring(call, monkeypatch):
+    """Which norms the fused decode path runs as add_rmsnorm: 2L+1 norms a
+    decode step, all but the first fused with their residual add; a final
+    prefill chunk gathers (logits_at) before the final norm, so that norm
+    runs alone; a mid chunk has no final norm. The unfused path gives the
+    same logits on the same weights (fp32, TOL)."""
+    tcfg = tl.LlamaConfig.tiny(fused_rmsnorm=True, n_layers=3)
+    tp = tl.init_params(tcfg, seed=2, device="cpu")
+    tp = {k: v + 0.1 * torch.randn_like(v) if "norm" in k else v for k, v in tp.items()}
+    calls = {"add_rmsnorm": 0, "rmsnorm": 0}
+    real_add, real_norm = tl.add_rmsnorm, tl._rmsnorm
+
+    def add(*a):
+        calls["add_rmsnorm"] += 1
+        return real_add(*a)
+
+    def norm(*a):
+        calls["rmsnorm"] += 1
+        return real_norm(*a)
+
+    monkeypatch.setattr(tl, "add_rmsnorm", add)
+    monkeypatch.setattr(tl, "_rmsnorm", norm)
+    toks = torch.tensor([[5, 9, 2, 7]], dtype=torch.int32)
+
+    def run(cfg):
+        cache = tl.init_kv_cache(cfg, 1, 16, "cpu")
+        if call == "decode":
+            tl.prefill(tp, cache, toks, cfg)
+            calls.update(add_rmsnorm=0, rmsnorm=0)
+            return tl.decode_step(tp, cache, toks[:, 0], cfg)[0]
+        return tl.prefill(tp, cache, toks, cfg, with_logits=call == "prefill_final")[0]
+
+    fused = run(tcfg)
+    L = tcfg.n_layers
+    want = {"decode": (2 * L, 1), "prefill_final": (2 * L - 1, 2), "prefill_mid": (2 * L - 1, 1)}
+    assert (calls["add_rmsnorm"], calls["rmsnorm"]) == want[call]
+    plain = run(dataclasses.replace(tcfg, fused_rmsnorm=False))
+    if call == "prefill_mid":
+        assert fused is None and plain is None
+    else:
+        np.testing.assert_allclose(_np(fused), _np(plain), **TOL)
 
 
 def test_ragged_prefill_ignores_padding():

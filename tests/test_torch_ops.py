@@ -14,7 +14,7 @@ import torch
 
 from ray_tpu.ops import rmsnorm as jax_rmsnorm
 from ray_tpu_torch._native import build
-from ray_tpu_torch.ops import rmsnorm
+from ray_tpu_torch.ops import add_rmsnorm, rmsnorm
 from ray_tpu_torch.ops.rmsnorm import rmsnorm_plain
 
 
@@ -41,6 +41,63 @@ def test_rmsnorm_bf16_matches_jax_kernel():
     out = rmsnorm(xt, torch.from_numpy(w))
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=2**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 128), (3, 5, 128), (16, 96)],
+                         ids=["batched", "ragged", "decode_rows"])
+def test_add_rmsnorm_matches_jax_kernel(shape):
+    """s = x + r, then the norm of s: JAX adds, then runs its Pallas kernel
+    (interpret mode); the port's add_rmsnorm on CPU tensors runs its plain
+    twin. fp32 within 1e-5."""
+    rng = np.random.default_rng(4)
+    x, r = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    w = rng.normal(size=(shape[-1],)).astype(np.float32)
+    s_ref = jnp.asarray(x) + jnp.asarray(r)
+    y_ref = np.asarray(jax_rmsnorm(s_ref, jnp.asarray(w)))
+    before = rmsnorm.launches
+    s, y = add_rmsnorm(torch.from_numpy(x), torch.from_numpy(r), torch.from_numpy(w))
+    assert rmsnorm.launches == before  # the CPU runs the plain twin
+    assert s.dtype == y.dtype == torch.float32 and tuple(s.shape) == tuple(y.shape) == shape
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), y_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("wdt", [np.float32, "bf16"], ids=["w_fp32", "w_bf16"])
+def test_add_rmsnorm_bf16_matches_jax_kernel(wdt):
+    """bf16 x and r: s is rounded to bf16 (x's dtype) before the norm, in
+    both packages; y within one bf16 rounding step of the JAX kernel (the
+    tolerance of test_rmsnorm_bf16_matches_jax_kernel)."""
+    rng = np.random.default_rng(5)
+    x, r = (jnp.asarray(rng.normal(size=(6, 256)).astype(np.float32)).astype(jnp.bfloat16)
+            for _ in range(2))
+    w = jnp.asarray(rng.normal(size=(256,)).astype(np.float32))
+    if wdt == "bf16":
+        w = w.astype(jnp.bfloat16)
+    s_ref = x + r
+    y_ref = np.asarray(jax_rmsnorm(s_ref, w).astype(jnp.float32))
+
+    def to_torch(a):
+        t = torch.from_numpy(np.array(a.astype(jnp.float32)))
+        return t.to(torch.bfloat16) if a.dtype == jnp.bfloat16 else t
+
+    before = rmsnorm.launches
+    s, y = add_rmsnorm(to_torch(x), to_torch(r), to_torch(w))
+    assert rmsnorm.launches == before
+    assert s.dtype == y.dtype == torch.bfloat16
+    np.testing.assert_array_equal(s.float().numpy(), np.asarray(s_ref.astype(jnp.float32)))
+    np.testing.assert_allclose(y.float().numpy(), y_ref, rtol=2**-7, atol=1e-6)
+
+
+def test_add_rmsnorm_is_inference_only_and_refuses_devices_without_a_kernel():
+    x = torch.ones(2, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        add_rmsnorm(x, torch.ones(2, 8), torch.ones(8))
+    with torch.no_grad():
+        s, _ = add_rmsnorm(x, torch.ones(2, 8), torch.ones(8))
+    assert torch.equal(s, torch.full((2, 8), 2.0))
+    meta = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        add_rmsnorm(meta, meta, torch.empty(8, device="meta"))
 
 
 def test_rmsnorm_grads_match_jax():
@@ -75,6 +132,27 @@ def test_cpu_path_does_not_launch():
     before = rmsnorm.launches
     rmsnorm(torch.ones(2, 8), torch.ones(8))
     assert rmsnorm.launches == before
+
+
+def test_launch_counts_read_and_add_every_counter():
+    """``launch_counts`` snapshots every kernel's counter by name and
+    ``add_launch_counts`` adds a difference of two snapshots back."""
+    from ray_tpu_torch.ops import add_launch_counts, flash_attention, launch_counts, quantize_int8
+
+    before = launch_counts()
+    assert set(before) == {"rmsnorm", "quantize_int8", "dequantize_int8", "flash_attention_fwd",
+                           "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"}
+    add_launch_counts({"rmsnorm": 3, "flash_attention_fwd": 2, "quantize_int8": 1})
+    try:
+        assert rmsnorm.launches == before["rmsnorm"] + 3
+        assert flash_attention.launches_fwd == before["flash_attention_fwd"] + 2
+        assert quantize_int8.launches == before["quantize_int8"] + 1
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            "rmsnorm": 3, "flash_attention_fwd": 2, "quantize_int8": 1}
+    finally:
+        add_launch_counts({"rmsnorm": -3, "flash_attention_fwd": -2, "quantize_int8": -1})
+    assert launch_counts() == before
 
 
 def test_non_cpu_tensor_never_reaches_plain_version():
