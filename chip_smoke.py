@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path,
-its training path and its int8 weight path.
+"""On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path
+(dense, MoE and multi-LoRA), its training path (dense and MoE, remat "full"
+and "dots"), its int8 weight path and the entry() twin.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -63,6 +64,27 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 broken control (the kernel fed K one position off) that
                 must exceed the grad limit, and the fused cross-entropy's
                 loss against the plain one.
+  9. moe_serve — llama3.2-3b with 8 experts of top-2 (full width and depth,
+                18 B params, seeded bf16) through LLMServer: 16 concurrent
+                greedy requests x 32 tokens, every decode step a graph
+                replay, RMSNorm launches counted; then 8 graphed MoE decode
+                steps against 8 eager ones (tokens equal, a control that
+                must differ).
+ 10. moe_numerics — 2 MoE layers at 3B width, bf16 and fp32 on the card
+                against fp32 on the CPU (the numerics limits, the routes
+                held equal for bf16), a control with one expert's w_down
+                shifted.
+ 11. moe_train — bench.py's train widths with 8 experts top-2, capacity
+                1.25, at the depth that fits: 2 warm-up and 3 timed steps,
+                attention launches 2L/L/L, and a loss that falls over 5
+                steps from well-conditioned weights.
+ 12. lora_serve — llama3.2-3b with two adapters loaded by load_lora: a
+                mixed batch of 16 equal to each request's sequential run,
+                base requests equal to the serve phase's tokens.
+ 13. train_dots — the train phase's configuration under remat "dots", in
+                turns with "full" (full, dots, dots, full).
+ 14. graft_entry — ray_tpu_torch.graft_entry.entry() in bf16 and fp32 on
+                the card against fp64 on the CPU, with a broken control.
 Then the kernels summary line, the nvidia-smi line, and, last,
 {"ok": true, "device": {...}}.
 
@@ -607,9 +629,64 @@ def phase_serve(torch, card: str) -> dict:
             "sampled_tokens": len(s1.token_ids), "sampled_equal_greedy": sampled_equal_greedy,
         }
         emit(result)
+        # the 16 greedy requests' tokens, for lora_serve's base requests
+        result["tokens_by_prompt"] = {tuple(o.prompt_token_ids): o.token_ids for o in outs}
         return result
     finally:
         eng.shutdown()
+
+
+def _graph_vs_eager(torch, params, cfg, B: int, S: int, steps: int, seed: int) -> dict:
+    """``steps`` replays of a DecodeGraph over a cache of B rows prefilled
+    with 96 seeded tokens, each replay's greedy tokens copied into the
+    graph's input, against ``steps`` eager decode_steps on a clone of the
+    cache; then a broken control, the replays without the copy, on another
+    clone. RMSNorm launches are counted over the copied replays. Returns
+    the graph, its cache and input, and the comparison."""
+    from ray_tpu_torch.llm.engine import DecodeGraph
+    from ray_tpu_torch.models.llama import decode_step, init_kv_cache, prefill
+    from ray_tpu_torch.ops import rmsnorm
+
+    prompt = torch.randint(0, cfg.vocab_size, (B, 96), generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.int32).cuda()
+    cache = init_kv_cache(cfg, B, S, "cuda")
+    logits, _ = prefill(params, cache, prompt, cfg)
+    first = logits.argmax(-1).to(torch.int32)
+    eager_cache = {k: v.clone() for k, v in cache.items()}
+    control_cache = {k: v.clone() for k, v in cache.items()}
+    tokens = first.clone()
+    graph = DecodeGraph(params, cache, tokens, cfg)
+
+    tok, eager = first, []
+    for _ in range(steps):
+        lg, _ = decode_step(params, eager_cache, tok, cfg)
+        tok = lg.argmax(-1).to(torch.int32)
+        eager.append((lg.clone(), tok))
+
+    def replays(copy: bool) -> list:
+        tokens.copy_(first)
+        out = []
+        for _ in range(steps):
+            lg = graph.replay()
+            nxt = lg.argmax(-1).to(torch.int32)
+            if copy:
+                tokens.copy_(nxt)
+            out.append((lg.clone(), nxt))
+        return out
+
+    rmsnorm.launches = 0
+    graphed = replays(True)
+    launches = rmsnorm.launches
+    for k in cache:
+        cache[k].copy_(control_cache[k])
+    control = replays(False)
+    torch.cuda.synchronize()
+    return {
+        "graph": graph, "cache": cache, "tokens": tokens, "rmsnorm_launches": launches,
+        "tokens_equal": all(torch.equal(g[1], e[1]) for g, e in zip(graphed, eager)),
+        "control_tokens_equal": all(torch.equal(c[1], e[1]) for c, e in zip(control, eager)),
+        "logits_max_abs_diff": max((g[0] - e[0]).abs().max().item() for g, e in zip(graphed, eager)),
+    }
 
 
 def phase_decode_graph(torch, card: str) -> dict:
@@ -623,53 +700,17 @@ def phase_decode_graph(torch, card: str) -> dict:
     8 replays without the copy, gives other tokens. Then the graphed step's
     device time, kernels and idle share (profiler) beside the eager step's
     and the step's weight + KV byte bound."""
-    from ray_tpu_torch.llm.engine import DecodeGraph
-    from ray_tpu_torch.models.llama import LlamaConfig, decode_step, init_kv_cache, prefill
-    from ray_tpu_torch.ops import rmsnorm
+    from ray_tpu_torch.models.llama import LlamaConfig, decode_step
     from ray_tpu_torch.tools.decode_profile import HBM_BYTES_PER_S, _profile, timed
 
     cfg = LlamaConfig.llama32_3b(max_seq_len=1024, fused_rmsnorm=True)
     params = _conditioned_params(torch, cfg, seed=5)
     B, S, steps = 16, 1024, 8
-    prompt = torch.randint(0, cfg.vocab_size, (B, 96), generator=torch.Generator().manual_seed(5),
-                           dtype=torch.int32).cuda()
     with torch.inference_mode():
-        cache = init_kv_cache(cfg, B, S, "cuda")
-        logits, _ = prefill(params, cache, prompt, cfg)
-        first = logits.argmax(-1).to(torch.int32)
-        eager_cache = {k: v.clone() for k, v in cache.items()}
-        control_cache = {k: v.clone() for k, v in cache.items()}
-        tokens = first.clone()
-        graph = DecodeGraph(params, cache, tokens, cfg)
-
-        tok, eager = first, []
-        for _ in range(steps):
-            lg, _ = decode_step(params, eager_cache, tok, cfg)
-            tok = lg.argmax(-1).to(torch.int32)
-            eager.append((lg.clone(), tok))
-
-        def replays(copy: bool) -> list:
-            tokens.copy_(first)
-            out = []
-            for _ in range(steps):
-                lg = graph.replay()
-                nxt = lg.argmax(-1).to(torch.int32)
-                if copy:
-                    tokens.copy_(nxt)
-                out.append((lg.clone(), nxt))
-            return out
-
-        rmsnorm.launches = 0
-        graphed = replays(True)
-        launches = rmsnorm.launches
-        for k in cache:
-            cache[k].copy_(control_cache[k])
-        control = replays(False)
-        torch.cuda.synchronize()
-        equal = all(torch.equal(g[1], e[1]) for g, e in zip(graphed, eager))
-        control_equal = all(torch.equal(c[1], e[1]) for c, e in zip(control, eager))
-        max_diff = max((g[0] - e[0]).abs().max().item() for g, e in zip(graphed, eager))
-        del eager_cache, control_cache, graphed, control, eager
+        g = _graph_vs_eager(torch, params, cfg, B, S, steps, seed=5)
+        graph, cache, tokens = g["graph"], g["cache"], g["tokens"]
+        equal, control_equal, max_diff, launches = (
+            g["tokens_equal"], g["control_tokens_equal"], g["logits_max_abs_diff"], g["rmsnorm_launches"])
 
         weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
         kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
@@ -689,7 +730,7 @@ def phase_decode_graph(torch, card: str) -> dict:
                   "times from torch.profiler",
     }
     emit(out)
-    del graph, params, cache
+    del graph, params, cache, g
     torch.cuda.empty_cache()
     if not equal:
         raise AssertionError(f"graphed decode tokens differ from eager (max logit diff {max_diff})")
@@ -718,7 +759,11 @@ def _conditioned_params(torch, cfg, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     width = {"embed": cfg.d_model, "unembed": cfg.d_model, "wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
              "wo": cfg.n_heads * cfg.head_dim, "w_gate": cfg.d_model, "w_up": cfg.d_model,
-             "w_down": cfg.d_ff}
+             "w_down": cfg.d_ff, "moe_w_gate": cfg.d_model, "moe_w_up": cfg.d_model,
+             "moe_w_down": cfg.d_ff,
+             # router logits of std 3: bf16 rounding rarely reorders a
+             # token's experts
+             "moe_router": cfg.d_model / 9}
     params = {}
     for name, shape in sorted(_param_shapes(cfg).items()):
         t = torch.randn(shape, generator=gen, device="cuda",
@@ -893,6 +938,482 @@ def phase_train_numerics(torch, card: str) -> dict:
     return out
 
 
+def gc_collect(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+MOE = {"moe_experts": 8, "moe_top_k": 2}
+SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
+
+
+def _serve_config(model_kwargs: dict, **engine_kw):
+    """The serve phase's engine shape: llama3.2-3b, 16 slots x 1024, chunk
+    256, 8 decode steps a program."""
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, ModelConfig
+
+    return LLMConfig(
+        model=ModelConfig(model_id="llama3.2-3b", tokenizer="byte", seed=0,
+                          model_kwargs={"fused_rmsnorm": True, **model_kwargs}),
+        engine=EngineConfig(max_num_seqs=16, max_seq_len=1024, prefill_buckets=SERVE_BUCKETS,
+                            prefill_chunk=256, decode_steps=8, decode_runahead=1, **engine_kw),
+    )
+
+
+def _serve_prompts() -> list:
+    """The serve phase's 16 distinct ~100-byte prompts."""
+    prompts = [f"Request {i:02d}: " + "write a short note about serving a model on one card. " * 2
+               for i in range(16)]
+    return [p[:100] for p in prompts]
+
+
+def _concurrent(server, bodies: list) -> tuple:
+    """``bodies`` through server.completions, one thread each, all at once.
+    Returns (the engine's RequestOutput of each body, in order, wall s)."""
+    eng = server.engine
+    generate = eng.generate
+    outs = {}
+
+    def observed(prompt, **kwargs):
+        out = generate(prompt, **kwargs)
+        outs[(prompt, kwargs.get("lora"))] = out
+        return out
+
+    replies = [None] * len(bodies)
+
+    def one(i):
+        replies[i] = server.completions(bodies[i])
+
+    eng.generate = observed
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        del eng.generate  # back to the class's method
+    for i, (b, r) in enumerate(zip(bodies, replies)):
+        if r is None or "error" in r or r["usage"]["completion_tokens"] != b["max_tokens"]:
+            raise AssertionError(f"request {i} did not return {b['max_tokens']} tokens: {r}")
+    return [outs[(b["prompt"], b.get("_lora"))] for b in bodies], wall
+
+
+def _step_delta(stats0: dict, stats: dict) -> dict:
+    return {k: stats[k] - stats0[k] for k in
+            ("decode_programs", "decode_steps", "decode_graph_replays", "prefill_mid_chunks",
+             "prefill_final_chunks", "decode_device_ms", "decode_programs_timed")}
+
+
+def phase_moe_serve(torch, card: str) -> dict:
+    """llama3.2-3b with 8 experts of top-2 (the MoE variant the LLM config
+    names), full width and depth, seeded bf16 weights, served through
+    LLMServer with the fused RMSNorm. 16 concurrent greedy requests x 32
+    tokens: every decode step a graph replay, RMSNorm launches as the
+    serve phase counts them. Then 8 graphed MoE decode steps against 8
+    eager ones on cloned caches (tokens equal; a control replayed without
+    the next tokens copied in gives other tokens). The decode step's byte
+    bound reads every expert: the batched branch streams the whole bank."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.ops import rmsnorm
+    from ray_tpu_torch.tools.decode_profile import HBM_BYTES_PER_S, _profile
+
+    cfg = _serve_config(MOE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = LLMServer(cfg)
+    init_s = time.perf_counter() - t0
+    eng = server.engine
+    try:
+        mcfg = eng.model_cfg
+        if (mcfg.d_model, mcfg.n_layers, mcfg.n_heads, mcfg.n_kv_heads, mcfg.d_ff, mcfg.vocab_size,
+                mcfg.tie_embeddings, mcfg.moe_experts, mcfg.moe_top_k) != (
+                3072, L_3B, 24, 8, 8192, 128256, True, 8, 2):
+            raise AssertionError(f"not the 3B MoE shape: {mcfg}")
+        server.completions({"prompt": "warm up " * 12, "max_tokens": 16, "ignore_eos": True})
+        stats0 = eng.get_stats()
+        rmsnorm.launches = 0  # counts from here on are the main path's
+        bodies = [{"prompt": p, "max_tokens": 32, "temperature": 0.0, "ignore_eos": True}
+                  for p in _serve_prompts()]
+        outs, wall = _concurrent(server, bodies)
+        launches = rmsnorm.launches
+        delta = _step_delta(stats0, eng.get_stats())
+    finally:
+        eng.shutdown()
+    if delta["decode_graph_replays"] != delta["decode_steps"]:
+        raise AssertionError(f"moe_serve: decode steps that were no graph replay: {delta}")
+    n_norms = 2 * L_3B + 1
+    expected = (n_norms * (delta["decode_steps"] + delta["prefill_final_chunks"])
+                + (n_norms - 1) * delta["prefill_mid_chunks"])
+    if launches != expected:
+        raise AssertionError(f"moe_serve: rmsnorm launches {launches} != expected {expected} ({delta})")
+    ttft = np.asarray([o.metrics["ttft_s"] for o in outs]) * 1e3
+    params = eng.params
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    kv_bytes = sum(2 * pool.cache["k"].numel() * pool.cache["k"].element_size() for pool in eng._pools)
+    step_bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    program_ms = delta["decode_device_ms"] / delta["decode_programs_timed"]
+    del server, eng, outs
+    gc_collect(torch)
+    with torch.inference_mode():
+        g = _graph_vs_eager(torch, params, mcfg, 16, 1024, 8, seed=7)
+        prof = _profile(g["graph"].replay, 5)
+    out = {
+        "phase": "moe_serve", "card": card, "model": "llama3.2-3b + 8 experts top-2",
+        "params": sum(p.numel() for p in params.values()), "engine_init_s": init_s,
+        "wall_s_16x32": wall, "out_tok_per_s": 16 * 32 / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)), "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "decode_program_ms_mean": program_ms, "decode_step_ms_mean": program_ms / 8,
+        "decode_step_bytes": weight_bytes + kv_bytes, "decode_step_bound_ms": step_bound_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "rmsnorm_launches": launches, "rmsnorm_launches_expected": expected, **delta,
+        "graphed_vs_eager": {k: g[k] for k in ("tokens_equal", "control_tokens_equal",
+                                               "logits_max_abs_diff", "rmsnorm_launches")},
+        "graphed_step_profile": prof,
+    }
+    emit(out)
+    del g, params
+    gc_collect(torch)
+    if not out["graphed_vs_eager"]["tokens_equal"]:
+        raise AssertionError("moe_serve: graphed MoE decode tokens differ from eager")
+    if out["graphed_vs_eager"]["control_tokens_equal"]:
+        raise AssertionError("moe_serve: the broken control gave the eager tokens")
+    return out
+
+
+def phase_moe_numerics(torch, card: str) -> dict:
+    """phase_numerics for the MoE variant: 2 layers at full 3B width with 8
+    experts of top-2, prefill of 2 x 64 tokens (G = 128: the prefill's
+    expert-by-expert branch), last-token logits on the card (fp32 and bf16,
+    through the RMSNorm kernel) against the same weights in fp32 on the
+    CPU through the plain path, on the RMS logit error relative to the RMS
+    logit. Router logits have a std of 3 (_conditioned_params). Limits:
+    - fp32: 1e-4, every token on the reference's experts;
+    - bf16: 5e-2 against the reference run on the card's expert choices
+      (at its own gates), and those choices equal to the reference's for
+      at least 95% of (layer, token) expert sets. bf16 rounding reorders
+      a token's experts near a tie, and such a token then carries another
+      expert's output: on the CPU at widths 768 and 1536 this doubles the
+      bf16 error (4.1-4.4e-2, against 2.1-2.5e-2 on equal choices; 2-3.5%
+      of sets changed), and on an H100 the card's own choices read 6.8e-2.
+      That error is reported beside the gated one;
+    - a broken control: one expert's w_down shifted by one element along
+      d_model in every layer, on the card copy only (the expert that the
+      reference routes row 0's last token to first in layer 0), must
+      exceed the bf16 limit against the reference on its own choices."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_kv_cache, prefill
+    from ray_tpu_torch.parallel import moe
+
+    bf16 = LlamaConfig.llama32_3b(n_layers=2, max_seq_len=128, fused_rmsnorm=True, **MOE)
+    fp32 = dataclasses.replace(bf16, dtype=torch.float32)
+    params = _conditioned_params(torch, bf16, seed=6)
+    tokens = torch.randint(0, bf16.vocab_size, (2, 64), generator=torch.Generator().manual_seed(6),
+                           dtype=torch.int32)
+    topk = moe.topk_gates
+
+    def logits(cfg, device, dtype, p=params, force=None):
+        """Last-token logits and each layer's expert choices [layers, G, k].
+        ``force`` gives the choices instead, at this run's own gates."""
+        routes = []
+
+        def recording(bank, x, k):
+            probs, vals, idx = topk(bank, x, k)
+            if force is not None:
+                idx = force[len(routes)].to(x.device)
+                vals = probs.gather(-1, idx)
+                vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+            routes.append(idx.cpu())
+            return probs, vals, idx
+
+        p = {k: v.to(device=device, dtype=dtype) for k, v in p.items()}
+        moe.topk_gates = recording
+        try:
+            with torch.inference_mode():
+                out, _ = prefill(p, init_kv_cache(cfg, 2, 64, device), tokens.to(device), cfg)
+        finally:
+            moe.topk_gates = topk
+        if not torch.isfinite(out).all() or out.shape != (2, cfg.vocab_size):
+            raise AssertionError(f"moe logits on {device} in {dtype}: wrong shape or not finite")
+        return out.float().cpu(), torch.stack(routes)
+
+    def rel_rms(a, b):
+        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+    def set_agreement(a, b):
+        """Share of (layer, token) whose chosen expert sets are equal."""
+        return (a.sort(-1).values == b.sort(-1).values).all(-1).float().mean().item()
+
+    plain = dataclasses.replace(fp32, fused_rmsnorm=False)
+    ref, ref_routes = logits(plain, "cpu", torch.float32)
+    expert = int(ref_routes[0, 63, 0])  # layer 0, row 0's last token, first choice
+    shifted = dict(params)
+    shifted["moe_w_down"] = params["moe_w_down"].clone()
+    shifted["moe_w_down"][:, expert] = torch.roll(params["moe_w_down"][:, expert], 1, dims=-1)
+    card32, routes32 = logits(fp32, "cuda", torch.float32)
+    card16, routes16 = logits(bf16, "cuda", torch.bfloat16)
+    control, control_routes = logits(bf16, "cuda", torch.bfloat16, shifted)
+    del shifted
+    # the reference with the card's expert choices: bf16 reorders a token's
+    # experts near a tie, and a changed choice moves that token by a whole
+    # expert's output, which is routing, not arithmetic
+    ref16, _ = logits(plain, "cpu", torch.float32, force=routes16)
+    ref_control, _ = logits(plain, "cpu", torch.float32, force=control_routes)
+    out = {
+        "phase": "moe_numerics", "card": card, "layers": 2, "d_model": bf16.d_model, "experts": 8,
+        "top_k": 2, "tokens": list(tokens.shape), "ref_rms": ref.pow(2).mean().sqrt().item(),
+        "fp32_rel_rms_err": rel_rms(card32, ref), "fp32_limit": 1e-4,
+        "fp32_route_set_agreement": set_agreement(routes32, ref_routes),
+        "bf16_rel_rms_err_same_routes": rel_rms(card16, ref16), "bf16_limit": 5e-2,
+        "bf16_route_set_agreement": set_agreement(routes16, ref_routes), "route_set_limit": 0.95,
+        "bf16_rel_rms_err_own_routes": rel_rms(card16, ref),
+        "bf16_route_position_agreement": (routes16 == ref_routes).float().mean().item(),
+        "bf16_max_abs_err_same_routes": (card16 - ref16).abs().max().item(),
+        "bf16_top1_agreement": (card16.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+        "control_expert": expert, "control_rel_rms_err_same_routes": rel_rms(control, ref_control),
+    }
+    emit(out)
+    del params
+    gc_collect(torch)
+    if out["fp32_rel_rms_err"] > out["fp32_limit"] or out["fp32_route_set_agreement"] < 1.0:
+        raise AssertionError(f"moe fp32 on the card: {out['fp32_rel_rms_err']} > {out['fp32_limit']}")
+    if out["bf16_rel_rms_err_same_routes"] > out["bf16_limit"]:
+        raise AssertionError(f"moe bf16 on the card: {out['bf16_rel_rms_err_same_routes']} > 5e-2")
+    if out["bf16_route_set_agreement"] < out["route_set_limit"]:
+        raise AssertionError(f"moe bf16 routes: {out['bf16_route_set_agreement']} agree < 0.95")
+    if out["control_rel_rms_err_same_routes"] <= out["bf16_limit"]:
+        raise AssertionError("moe_numerics: the broken control passed the bf16 limit")
+    return out
+
+
+def phase_moe_train(torch, card: str) -> dict:
+    """bench.py's train widths with 8 experts, top-2, capacity 1.25 (batch
+    4 x 2048, bf16, remat "full", splash) through make_train_step, at the
+    depth that fits (tools/moe_train_bench.py:moe_layers), the optimizer at
+    its peak rate from step 2 (moe_optimizer): 2 warm-up and 3 timed steps
+    from init_params' weights, finite losses, attention launches 2L/L/L a
+    step. Then the learning check: 5 steps on one fixed batch from
+    well-conditioned weights (_conditioned_params), the last loss below
+    the first. From init_params' weights at this width the gradient norm
+    reads ~2e7 and the loss moves by +-0.02 from step to step whatever the
+    rate (on an H100: 11.01-11.05 over 7 steps), so those steps show no
+    learning either way."""
+    from ray_tpu_torch.models.training import TrainState, make_train_step
+    from ray_tpu_torch.tools.moe_train_bench import (
+        measured, moe_layers, moe_optimizer, moe_train_config, reckoned_peak_bytes,
+    )
+    from ray_tpu_torch.tools.train_bench import make_batch, profile_step, run
+
+    L, why = moe_layers()
+    cfg = moe_train_config(L)
+    out = run(cfg, batch=4, seq=2048, warmup=2, steps=3, optimizer=moe_optimizer())
+    live = {k: out.pop(k) for k in ("state", "step_fn", "batch")}
+    profile = profile_step(live["step_fn"], live["state"], live["batch"])
+    del live
+    gc_collect(torch)
+    steps = out["steps"]
+    expected = {"fwd": 2 * L * steps, "bwd_dq": L * steps, "bwd_dkdv": L * steps}
+    params = _conditioned_params(torch, cfg, seed=8)
+    opt = moe_optimizer()
+    _, step_fn = make_train_step(cfg, opt)
+    state, batch, learn = TrainState(params, opt.init(params), 0), make_batch(cfg, 4, 2048, seed=8), []
+    for _ in range(5):
+        state, metrics = step_fn(state, batch)
+        learn.append(metrics["loss"])
+    learn = [float(x) for x in learn]
+    del params, state, metrics, batch
+    gc_collect(torch)
+    out = {
+        "phase": "moe_train", "card": card, "model": "bench.py train widths + 8 experts top-2",
+        "layers": L, "depth_rule": why, "reckoned_peak_gb": reckoned_peak_bytes(cfg) / 1e9,
+        "optimizer": "default_optimizer with 1 warm-up step (peak rate 3e-4 from step 2)",
+        **measured(cfg, out), "learning_losses": learn, "launches_expected": expected,
+        "profile": profile,
+        "mfu_note": "mfu counts each token through its top-k experts (6 x active params + "
+                    "attention); mfu_capacity_slots counts the capacity buffers' slots "
+                    "(capacity factor x top-k)",
+    }
+    emit(out)
+    if out["launches"] != expected:
+        raise AssertionError(f"moe_train: attention launches {out['launches']} != {expected}")
+    if not all(math.isfinite(x) for x in out["losses"] + learn):
+        raise AssertionError(f"moe_train: non-finite loss: {out['losses']}, {learn}")
+    if not learn[-1] < learn[0]:
+        raise AssertionError(f"moe_train: the loss did not fall over {len(learn)} steps: {learn}")
+    return out
+
+
+def phase_train_dots(torch, card: str, full: dict) -> dict:
+    """The train phase's configuration with remat_policy="dots", in turns
+    with "full" in this phase (full, dots, dots, full: 2 warm-up and 3 timed
+    steps each), so both read the card in the same state; the train
+    phase's own "full" reading stands beside them. Attention launches
+    stay 2L/L/L a step under "dots" (the attention kernel is no matmul op,
+    so the policy recomputes it)."""
+    from ray_tpu_torch.tools.train_bench import bench_config, run
+
+    runs = []
+    for policy in ("full", "dots", "dots", "full"):
+        cfg = bench_config(remat_policy=policy)
+        out = run(cfg, batch=4, seq=2048, warmup=2, steps=3)
+        for k in ("state", "step_fn", "batch"):
+            del out[k]
+        gc_collect(torch)
+        runs.append({"policy": policy, **out})
+    L, steps = cfg.n_layers, runs[0]["steps"]
+    expected = {"fwd": 2 * L * steps, "bwd_dq": L * steps, "bwd_dkdv": L * steps}
+    ms = {p: [r["step_ms"] for r in runs if r["policy"] == p] for p in ("full", "dots")}
+    peak = {p: max(r["peak_mem_gib"] for r in runs if r["policy"] == p) for p in ("full", "dots")}
+    out = {"phase": "train_dots", "card": card, "model": "bench.py train config, remat dots vs full",
+           "step_ms": ms, "peak_mem_gib": peak, "launches_expected": expected,
+           "runs": [{k: r[k] for k in ("policy", "step_ms", "mfu", "peak_mem_gib", "losses", "launches")}
+                    for r in runs],
+           "train_phase_full_step_ms": full["step_ms"], "train_phase_full_peak_mem_gib": full["peak_mem_gib"]}
+    emit(out)
+    for r in runs:
+        if r["launches"] != expected:
+            raise AssertionError(f"train_dots: {r['policy']} attention launches {r['launches']} != {expected}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"train_dots: non-finite loss: {r['losses']}")
+    return {"launches": next(r for r in runs if r["policy"] == "dots")["launches"], **out}
+
+
+def phase_lora_serve(torch, card: str, serve: dict) -> dict:
+    """llama3.2-3b at full depth with max_loras=2, lora_rank=8, served
+    through LLMServer (prefix caching off, so every prefill is cold). Two
+    seeded adapters loaded with load_lora. 16 requests of 32 tokens on the
+    serve phase's prompts, on adapters (none, "a", "b") in turn, run one
+    by one and then all at once: each request's tokens equal in both runs;
+    the base requests' tokens equal the serve phase's (no-LoRA engine, same
+    weights) first 32; adapted tokens differ from the base somewhere; every
+    decode step a graph replay while slots change adapters."""
+    from ray_tpu_torch.llm import LLMServer, SamplingParams
+    from ray_tpu_torch.ops import rmsnorm
+    from ray_tpu_torch.tools.decode_profile import _profile
+
+    cfg = _serve_config({}, max_loras=2, lora_rank=8, enable_prefix_caching=False)
+    server = LLMServer(cfg)
+    eng = server.engine
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        mcfg = eng.model_cfg
+        for name in ("a", "b"):
+            # A: N(0, 1) / sqrt(d_model); B: N(0, 1) x 4 / sqrt(rank): deltas
+            # of O(4) on q and v, whose entries are O(10) under this init
+            weights = {k: torch.randn(v.shape[:1] + v.shape[2:], generator=gen, device="cuda")
+                       * (mcfg.d_model**-0.5 if k.endswith("_a") else 4 * cfg.engine.lora_rank**-0.5)
+                       for k, v in eng.loras.items()}
+            server.load_lora(name, weights)
+        if server.list_loras() != ["a", "b"]:
+            raise AssertionError(f"lora_serve: loaded {server.list_loras()}")
+        server.completions({"prompt": "warm up " * 12, "max_tokens": 16, "ignore_eos": True,
+                            "_lora": "a"})
+        adapters = [(None, "a", "b")[i % 3] for i in range(16)]
+        bodies = [{"prompt": p, "max_tokens": 32, "temperature": 0.0, "ignore_eos": True,
+                   **({"_lora": a} if a else {})} for p, a in zip(_serve_prompts(), adapters)]
+        sp = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+        sequential = [eng.generate(b["prompt"], sampling_params=sp, lora=b.get("_lora")).token_ids
+                      for b in bodies]
+        stats0 = eng.get_stats()
+        rmsnorm.launches = 0  # counts from here on are the path's
+        outs, wall = _concurrent(server, bodies)
+        launches = rmsnorm.launches
+        delta = _step_delta(stats0, eng.get_stats())
+    finally:
+        eng.shutdown()
+    n_norms = 2 * L_3B + 1
+    expected = (n_norms * (delta["decode_steps"] + delta["prefill_final_chunks"])
+                + (n_norms - 1) * delta["prefill_mid_chunks"])
+    with torch.inference_mode():  # the pool's decode graph, adapters and all
+        prof = _profile(eng._pools[0].graph.replay, 5)
+    mixed = [o.token_ids for o in outs]
+    base = {tuple(o.prompt_token_ids): o.token_ids for o, a in zip(outs, adapters) if a is None}
+    base_equal = all(serve["tokens_by_prompt"][k][:32] == t for k, t in base.items())
+    adapted_differ = sum(
+        o.token_ids != serve["tokens_by_prompt"][tuple(o.prompt_token_ids)][:32]
+        for o, a in zip(outs, adapters) if a)
+    out = {
+        "phase": "lora_serve", "card": card, "model": "llama3.2-3b", "max_loras": 2, "lora_rank": 8,
+        "requests": 16, "adapters": adapters, "wall_s_16x32": wall, "out_tok_per_s": 16 * 32 / wall,
+        "serve_out_tok_per_s_16x64": serve["out_tok_per_s"],
+        "mixed_equal_sequential": mixed == sequential, "base_requests": len(base),
+        "base_equal_no_lora_engine": base_equal, "adapted_requests_differing_from_base": adapted_differ,
+        "decode_program_ms_mean": delta["decode_device_ms"] / delta["decode_programs_timed"],
+        "rmsnorm_launches": launches, "rmsnorm_launches_expected": expected, **delta,
+        "graphed_step_profile": prof,
+    }
+    emit(out)
+    del server, eng, outs
+    gc_collect(torch)
+    if delta["decode_graph_replays"] != delta["decode_steps"]:
+        raise AssertionError(f"lora_serve: decode steps that were no graph replay: {delta}")
+    if launches != expected:
+        raise AssertionError(f"lora_serve: rmsnorm launches {launches} != expected {expected}")
+    if not out["mixed_equal_sequential"]:
+        raise AssertionError("lora_serve: the mixed batch's tokens differ from the sequential runs'")
+    if not base_equal or len(base) != 6:
+        raise AssertionError("lora_serve: base requests differ from the no-LoRA engine's tokens")
+    if adapted_differ == 0:
+        raise AssertionError("lora_serve: no adapter changed any request's tokens")
+    return out
+
+
+def phase_graft_entry(torch, card: str) -> dict:
+    """ray_tpu_torch.graft_entry.entry() on the card: its bf16 forward, and
+    the same weights in fp32, against an fp64 reference on the CPU. The
+    entry's weights are ill-conditioned (init_params draws wq/wk with
+    fan_in = the head count: attention scores of std ~64, a nearly one-hot
+    softmax), so bf16 alone is far from the reference: on the CPU the
+    port's bf16 reads 0.53 and the JAX entry's 0.56 relative RMS, fp32
+    8.2e-4. Limits, fixed from those CPU readings before the first card
+    run: fp32 1e-2, bf16 0.75; a broken control (layer 0's wo rolled by
+    one along d_model: 1.42 on the CPU) must exceed both."""
+    from ray_tpu_torch.graft_entry import entry, entry_config
+    from ray_tpu_torch.models.llama import forward
+
+    fn, (params, tokens) = entry()
+    cfg = entry_config()
+
+    def run(p, device, dtype):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        with torch.inference_mode():
+            out = forward({k: v.to(device=device, dtype=dtype) for k, v in p.items()}, tokens.to(device), c)
+        if not torch.isfinite(out).all() or out.shape != (2, 128, cfg.vocab_size):
+            raise AssertionError(f"graft_entry on {device} in {dtype}: wrong shape or not finite")
+        return out.double().cpu()
+
+    def rel_rms(a, b):
+        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+    with torch.inference_mode():
+        card16 = fn(params, tokens).double().cpu()
+    ref = run(params, "cpu", torch.float64)
+    broken = dict(params)
+    broken["wo"] = params["wo"].clone()
+    broken["wo"][0] = torch.roll(params["wo"][0], 1, dims=-1)
+    out = {
+        "phase": "graft_entry", "card": card, "config": "4 layers, d 512, 8/4 heads, d_ff 1408, "
+        "vocab 4096, bf16, 2 x 128 tokens", "logits": list(card16.shape),
+        "bf16_rel_rms_err": rel_rms(card16, ref), "bf16_limit": 0.75,
+        "cpu_bf16_rel_rms_err": rel_rms(run(params, "cpu", torch.bfloat16), ref),
+        "fp32_rel_rms_err": rel_rms(run(params, "cuda", torch.float32), ref), "fp32_limit": 1e-2,
+        "bf16_top1_agreement": (card16.argmax(-1) == ref.argmax(-1)).double().mean().item(),
+        "control_fp32_rel_rms_err": rel_rms(run(broken, "cuda", torch.float32), ref),
+        "control_bf16_rel_rms_err": rel_rms(run(broken, "cuda", torch.bfloat16), ref),
+    }
+    emit(out)
+    if out["fp32_rel_rms_err"] > out["fp32_limit"] or out["bf16_rel_rms_err"] > out["bf16_limit"]:
+        raise AssertionError(f"graft_entry: outside the limits: {out}")
+    if out["control_fp32_rel_rms_err"] <= out["fp32_limit"] or out["control_bf16_rel_rms_err"] <= out["bf16_limit"]:
+        raise AssertionError("graft_entry: the broken control passed a limit")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -934,6 +1455,13 @@ def main() -> int:
     timed_phase("numerics", phase_numerics)
     train = timed_phase("train", phase_train)
     timed_phase("train_numerics", phase_train_numerics)
+    gc_collect(torch)
+    moe_serve = timed_phase("moe_serve", phase_moe_serve)
+    timed_phase("moe_numerics", phase_moe_numerics)
+    moe_train = timed_phase("moe_train", phase_moe_train)
+    lora_serve = timed_phase("lora_serve", lambda torch, card: phase_lora_serve(torch, card, serve))
+    dots = timed_phase("train_dots", lambda torch, card: phase_train_dots(torch, card, train))
+    timed_phase("graft_entry", phase_graft_entry)
     emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
@@ -971,6 +1499,10 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/rmsnorm.cu",
         "replaces": "ray_tpu/ops/rmsnorm.py:23",
         "launches": serve["rmsnorm_launches"],
+        # each serving path, its counter set to 0 just before it
+        "launches_by_path": {"serve": serve["rmsnorm_launches"],
+                             "moe_serve": moe_serve["rmsnorm_launches"],
+                             "lora_serve": lora_serve["rmsnorm_launches"]},
         "max_abs_err": k["max_abs_err"],
         "ms": decode["kernel_us"] / 1e3,
         "plain_ms": decode["plain_us"] / 1e3,
@@ -989,6 +1521,9 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/flash_attention" + ("_fwd.cu" if key == "fwd" else ".cu"),
         "replaces": replaces,
         "launches": train["launches"][key],
+        # each training path's timed steps, the counters set to 0 before them
+        "launches_by_path": {"train": train["launches"][key], "moe_train": moe_train["launches"][key],
+                             "train_dots": dots["launches"][key]},
         "max_abs_err": k["attention"]["max_abs_err"],
         "ms": bench[key]["kernel_us"] / 1e3,
         "plain_ms": bench[key]["plain_us"] / 1e3,

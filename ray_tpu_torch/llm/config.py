@@ -130,10 +130,11 @@ class LLMConfig:
     num_replicas: int = 1
     ray_actor_options: Optional[dict] = None
     autoscaling_config: Optional[dict] = None
-    # multi-LoRA: adapter name -> pytree-checkpoint path, loaded into the
-    # engine's stacked adapter slots at replica start; requests select one
-    # with model="<served_name>:<adapter>" (reference: the LoRA model-id
-    # convention in llm/_internal/serve)
+    # multi-LoRA: adapter name -> weights ({wq_a, wq_b, wv_a, wv_b}; a
+    # pytree-checkpoint path needs the Train slice's restore_pytree), loaded
+    # into the engine's stacked adapter slots at replica start; requests
+    # select one with model="<served_name>:<adapter>" (reference: the LoRA
+    # model-id convention in llm/_internal/serve)
     lora_adapters: dict = dataclasses.field(default_factory=dict)
     # Startup budget override: how long a replica may legitimately sit in
     # __init__ before serve may treat it as hung (read by the JAX

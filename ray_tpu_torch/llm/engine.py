@@ -18,7 +18,10 @@ surface and the same host logic:
   CPU the step runs eagerly;
 - greedy / top-k / temperature sampling on the device with one
   ``torch.Generator`` per slot, seeded per request, so a seeded request
-  draws the same tokens whatever shares its batch.
+  draws the same tokens whatever shares its batch;
+- MoE models (the dropless serving FFN) and multi-LoRA serving: adapters
+  live stacked on the device and each slot reads its own by index, so one
+  decode graph serves any mix of adapters.
 
 Nothing on the launch path waits for the device: token ids, lengths and
 positions reach the device through pinned non-blocking copies or fill
@@ -26,8 +29,8 @@ kernels, and results come back through a non-blocking copy into pinned host
 memory plus a recorded CUDA event (``_Fetch``). The loop reads a result once
 its event has completed, and waits on one only when run-ahead is used up.
 
-LoRA adapters, MoE models, tensor/sequence parallelism and checkpoint
-loading raise ``NotImplementedError``: they come with later slices.
+Tensor/sequence parallelism and checkpoint loading raise
+``NotImplementedError``: they come with later slices.
 """
 
 from __future__ import annotations
@@ -50,7 +53,14 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams, resolve_llama_config
 from ray_tpu_torch.llm.pacing import TokenPacer
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
-from ray_tpu_torch.models.llama import decode_step, init_kv_cache, init_params, prefill
+from ray_tpu_torch.models.convert import _to_tensor
+from ray_tpu_torch.models.llama import (
+    decode_step,
+    init_kv_cache,
+    init_lora_stack,
+    init_params,
+    prefill,
+)
 from ray_tpu_torch.ops import add_launch_counts, launch_counts
 
 logger = logging.getLogger(__name__)
@@ -69,8 +79,10 @@ class RequestOutput:
 
 
 class _Request:
-    def __init__(self, request_id: str, token_ids: list[int], params: SamplingParams):
+    def __init__(self, request_id: str, token_ids: list[int], params: SamplingParams,
+                 lora_idx: int = 0):
         self.request_id = request_id
+        self.lora_idx = lora_idx  # adapter stack slot; 0 = the base model
         self.prompt_token_ids = token_ids
         self.params = params
         self.out_tokens: list[int] = []
@@ -136,7 +148,9 @@ class DecodeGraph:
     ``tokens`` [B] int32 is the graph's input and ``logits`` [B, V] fp32 its
     output. Both stay at fixed addresses, as do the params and the cache the
     graph reads: write the next tokens with ``tokens.copy_`` and read
-    ``logits`` before the next replay (stream order does both).
+    ``logits`` before the next replay (stream order does both). With
+    ``loras`` the graph also reads the adapter stacks and ``adapter_ids``
+    [B], written in place the same way.
 
     The warm-up calls before the capture really run: they write K/V at the
     cache's positions ``length`` onwards, where no live entry is, and
@@ -146,19 +160,20 @@ class DecodeGraph:
     (``ops.launch_counts``) count kernels that ran. A capture or replay
     that fails raises."""
 
-    def __init__(self, params, cache, tokens, cfg):
+    def __init__(self, params, cache, tokens, cfg, loras=None, adapter_ids=None):
         device = tokens.device
         length = cache["length"].clone()
+        lora_kw = {} if loras is None else {"loras": loras, "adapter_ids": adapter_ids}
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(2):
-                decode_step(params, cache, tokens, cfg)
+                decode_step(params, cache, tokens, cfg, **lora_kw)
         torch.cuda.current_stream(device).wait_stream(side)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.logits, _ = decode_step(params, cache, tokens, cfg)
+            self.logits, _ = decode_step(params, cache, tokens, cfg, **lora_kw)
         after = launch_counts()
         # kernel name -> launches of one replay
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -190,6 +205,10 @@ class _Pool:
         # without a host round trip (run-ahead); the decode graph's input,
         # so only ever written in place
         self.dev_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+        # each slot's adapter (0 = base), read by the decode graph like
+        # dev_tokens, and its host copy
+        self.adapter_ids = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+        self.adapter_host = np.zeros((n_slots,), np.int32)
         self.graph: Optional[DecodeGraph] = None  # CUDA only
         self.admitting: dict[int, _Admission] = {}
         # launched work whose results are still on their way to the host, in
@@ -203,20 +222,31 @@ class _Pool:
 
 
 class TorchEngine:
-    """On CUDA the decode graphs read ``params`` and each pool's cache at
-    the addresses they had when the engine was built: update weights in
-    place (``copy_``). Assigning ``params`` raises once a graph exists."""
+    """On CUDA the decode graphs read ``params``, the LoRA stacks and each
+    pool's cache at the addresses they had when the engine was built:
+    update weights in place (``copy_``). Assigning ``params`` raises once a
+    graph exists."""
 
     def __init__(self, config: LLMConfig, device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
         self.config = config
         ec = config.engine
-        if ec.max_loras > 0:
-            raise NotImplementedError(f"multi-LoRA serving {_LATER}")
         if ec.tensor_parallel_degree > 1 or ec.sequence_parallel_degree > 1:
             raise NotImplementedError(f"tensor/sequence-parallel serving {_LATER}")
         self.tokenizer = get_tokenizer(config.model.tokenizer)
         self._build_model()
+        # multi-LoRA: stacked adapters (slot 0 = base, all zero) and the
+        # name -> slot registry. None at max_loras=0: the decode graph then
+        # has no adapter inputs at all.
+        self.loras = (
+            init_lora_stack(self.model_cfg, ec.max_loras, ec.lora_rank, self.device)
+            if ec.max_loras > 0 else None
+        )
+        self._lora_ids: dict[str, int] = {}
+        # held by the loop while it launches device work, and by add_lora /
+        # remove_lora while they write the stacks, so a write never lands
+        # between the launches of one step
+        self._launch_lock = threading.Lock()
         self._build_pools()
         for pool in self._pools:
             self._capture(pool)
@@ -301,8 +331,6 @@ class TorchEngine:
     def _build_model(self):
         mc, ec = self.config.model, self.config.engine
         self.model_cfg = resolve_llama_config(mc, ec, min_vocab=self.tokenizer.vocab_size)
-        if self.model_cfg.moe_experts:
-            raise NotImplementedError(f"MoE serving {_LATER}")
         if mc.checkpoint_path:
             raise NotImplementedError(f"checkpoint loading {_LATER}")
         self.params = init_params(self.model_cfg, seed=mc.seed, device=self.device)
@@ -346,7 +374,15 @@ class TorchEngine:
         if self.device.type != "cuda":
             return
         with torch.cuda.device(self.device), torch.inference_mode():
-            pool.graph = DecodeGraph(self.params, pool.cache, pool.dev_tokens, self.model_cfg)
+            pool.graph = DecodeGraph(self.params, pool.cache, pool.dev_tokens, self.model_cfg,
+                                     **self._lora_kw(pool.adapter_ids))
+
+    def _lora_kw(self, adapter_ids: torch.Tensor) -> dict:
+        """decode_step/prefill keywords of the adapter path; none without
+        LoRA, so the no-LoRA programs take no adapter inputs."""
+        if self.loras is None:
+            return {}
+        return {"loras": self.loras, "adapter_ids": adapter_ids}
 
     def _decode(self, pool: _Pool, hot: list) -> torch.Tensor:
         """K decode steps chained on the pool's device-resident tokens ->
@@ -362,7 +398,8 @@ class TorchEngine:
                 logits = pool.graph.replay()
                 self._counts["decode_graph_replays"] += 1
             else:
-                logits, _ = decode_step(self.params, pool.cache, pool.dev_tokens, self.model_cfg)
+                logits, _ = decode_step(self.params, pool.cache, pool.dev_tokens, self.model_cfg,
+                                        **self._lora_kw(pool.adapter_ids))
             toks = self._sample(logits, hot)
             pool.dev_tokens.copy_(toks)
             outs.append(toks)
@@ -415,6 +452,46 @@ class TorchEngine:
         ):
             _, old = self._prefix_cache.popitem(last=False)
             self._prefix_bytes -= old["nbytes"]
+
+    # -- multi-LoRA ----------------------------------------------------------
+
+    def add_lora(self, name: str, adapters: dict) -> int:
+        """Load an adapter into a free stack slot and return the slot.
+        ``adapters``: {wq_a: [L, e, r], wq_b: [L, r, h, hd], wv_a: [L, e, r],
+        wv_b: [L, r, kv, hd]} (tensors or numpy arrays). The stacks are
+        written in place: the decode graphs read them where they are."""
+        if self.loras is None:
+            raise ValueError("engine built with max_loras=0")
+        if name in self._lora_ids:
+            return self._lora_ids[name]
+        used = set(self._lora_ids.values())
+        free = [i for i in range(1, self.config.engine.max_loras + 1) if i not in used]
+        if not free:
+            raise RuntimeError(f"all {self.config.engine.max_loras} LoRA slots in use")
+        idx = free[0]
+        new = {}
+        for k, stack in self.loras.items():
+            a = adapters[k] if torch.is_tensor(adapters[k]) else _to_tensor(adapters[k])
+            want = stack.shape[:1] + stack.shape[2:]
+            if a.shape != want:
+                raise ValueError(f"{name}.{k}: shape {tuple(a.shape)} != {tuple(want)}")
+            new[k] = a.to(device=self.device, dtype=stack.dtype)
+        with self._launch_lock, torch.no_grad():
+            for k, stack in self.loras.items():
+                stack[:, idx].copy_(new[k])
+        self._lora_ids[name] = idx
+        return idx
+
+    def remove_lora(self, name: str) -> None:
+        idx = self._lora_ids.pop(name, None)
+        if idx is None:
+            return
+        with self._launch_lock, torch.no_grad():
+            for stack in self.loras.values():
+                stack[:, idx].zero_()
+
+    def list_loras(self) -> list[str]:
+        return sorted(self._lora_ids)
 
     # -- public API ---------------------------------------------------------
 
@@ -477,8 +554,11 @@ class TorchEngine:
 
     def submit(self, prompt=None, *, prompt_token_ids=None, sampling_params=None,
                lora: Optional[str] = None) -> _Request:
+        lora_idx = 0
         if lora:
-            raise NotImplementedError(f"LoRA adapters {_LATER}")
+            if lora not in self._lora_ids:
+                raise KeyError(f"unknown LoRA adapter: {lora!r}")
+            lora_idx = self._lora_ids[lora]
         if prompt_token_ids is None:
             if prompt is None:
                 raise ValueError("prompt or prompt_token_ids required")
@@ -487,7 +567,8 @@ class TorchEngine:
         if len(prompt_token_ids) > max_prompt:
             prompt_token_ids = prompt_token_ids[-max_prompt:]
         req = _Request(
-            uuid.uuid4().hex[:12], list(prompt_token_ids), sampling_params or SamplingParams()
+            uuid.uuid4().hex[:12], list(prompt_token_ids), sampling_params or SamplingParams(),
+            lora_idx,
         )
         self._waiting.put(req)
         return req
@@ -566,7 +647,9 @@ class TorchEngine:
         if len(ids) > pool.stripe_len - 1:
             ids = ids[-(pool.stripe_len - 1):]
             req.prompt_token_ids = ids
-        prefix, m = self._prefix_lookup(ids)
+        # an adapted request neither reuses base-model KV (its V carries the
+        # adapter's delta) nor stores its own
+        prefix, m = self._prefix_lookup(ids) if req.lora_idx == 0 else (None, 0)
         suffix = ids[m:]
         req.prefix_hit_tokens = m
         chunk = self.config.engine.prefill_chunk or len(suffix)
@@ -594,13 +677,14 @@ class TorchEngine:
         req = adm.req
         t = self._to_device(toks)
         l, s = self._int_vec(eff_len), self._int_vec(start)
+        lora_kw = self._lora_kw(self._int_vec(req.lora_idx))
         if not is_final:
             prefill(self.params, adm.one, t, self.model_cfg, lengths=l, start_pos=s,
-                    with_logits=False)
+                    with_logits=False, **lora_kw)
             self._counts["prefill_mid_chunks"] += 1
             return
         last_logits, one = prefill(
-            self.params, adm.one, t, self.model_cfg, lengths=l, start_pos=s
+            self.params, adm.one, t, self.model_cfg, lengths=l, start_pos=s, **lora_kw
         )
         self._counts["prefill_final_chunks"] += 1
         slot = adm.slot
@@ -618,13 +702,22 @@ class TorchEngine:
         first_tok = self._sample(last_logits, hot)
         pool.gens[slot] = gen
         pool.dev_tokens[slot : slot + 1].copy_(first_tok)
+        self._set_adapter(pool, slot, req.lora_idx)
         pool.slots[slot] = req
         pool.temps[slot] = temp
         pool.top_ks[slot] = top_k
         del pool.admitting[slot]
-        if req.prefix_hit_tokens == 0:
+        if req.prefix_hit_tokens == 0 and req.lora_idx == 0:
             self._prefix_store(pool, slot, req.prompt_token_ids)
         pool.inflight.append(("first", slot, req, _Fetch(first_tok)))
+
+    @staticmethod
+    def _set_adapter(pool: _Pool, slot: int, idx: int) -> None:
+        """The slot's adapter id, written in place (a fill kernel: no sync)
+        only when it changes."""
+        if pool.adapter_host[slot] != idx:
+            pool.adapter_host[slot] = idx
+            pool.adapter_ids[slot].fill_(idx)
 
     def _fail_admission(self, pool: _Pool, adm: _Admission, e: BaseException):
         pool.admitting.pop(adm.slot, None)
@@ -733,6 +826,8 @@ class TorchEngine:
         pool.inflight.clear()
         pool.cache = init_kv_cache(self.model_cfg, pool.n_slots, pool.stripe_len, self.device)
         pool.dev_tokens.zero_()
+        pool.adapter_ids.zero_()
+        pool.adapter_host[:] = 0
         pool.gens = [None] * pool.n_slots
         # a new graph over the fresh cache (the capture synchronises the
         # device before the old graph is dropped); if it fails, the pool's
@@ -795,8 +890,9 @@ class TorchEngine:
         with torch.inference_mode():
             while not self._stop.is_set():
                 progressed = self._pull_waiting()
-                progressed |= self._advance_admissions()
-                progressed |= self._launch_decodes()
+                with self._launch_lock:
+                    progressed |= self._advance_admissions()
+                    progressed |= self._launch_decodes()
                 progressed |= self._drain()
                 if not progressed:
                     time.sleep(0.002)
@@ -822,5 +918,6 @@ class TorchEngine:
         if is_stop or len(req.out_tokens) >= p.max_tokens or out_of_room:
             req.finish_reason = "stop" if is_stop else "length"
             pool.slots[slot] = None
+            self._set_adapter(pool, slot, 0)
             req.stream_queue.put(None)
             req.done.set()

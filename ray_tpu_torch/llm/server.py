@@ -2,9 +2,10 @@
 
 Counterpart of ``ray_tpu/llm/server.py``: the same request and reply
 shapes, hosted on the port's engine. A replica = one engine = one CUDA
-device. Loading LoRA adapters comes with the port's LoRA slice; until then
-a request naming an adapter gets the OpenAI-style 404 that an unknown
-adapter gets.
+device. LoRA adapters load from in-memory weights; a request picks one
+with ``"_lora"`` and gets an OpenAI-style 404 for an adapter the replica
+does not serve. Loading an adapter from a checkpoint path comes with the
+port's Train slice (``train/checkpoint.py:restore_pytree``).
 """
 
 from __future__ import annotations
@@ -30,18 +31,42 @@ def _sampling(body: dict) -> SamplingParams:
 
 class LLMServer:
     def __init__(self, llm_config: LLMConfig, device=None):
-        if llm_config.lora_adapters:
-            raise NotImplementedError(
-                "LoRA adapters are not ported yet (a later slice of the port)"
-            )
         self.llm_config = llm_config
         self.engine = TorchEngine(llm_config, device=device)
+        try:
+            for name, weights in (llm_config.lora_adapters or {}).items():
+                self.load_lora(name, weights)
+        except BaseException:
+            self.engine.shutdown()
+            raise
+
+    # -- multi-LoRA ----------------------------------------------------------
+
+    def load_lora(self, name: str, path_or_weights) -> bool:
+        """Load an adapter into this replica's engine stack. Weights are a
+        dict {wq_a, wq_b, wv_a, wv_b} of tensors or numpy arrays
+        (``TorchEngine.add_lora``); a checkpoint path is not readable yet."""
+        if isinstance(path_or_weights, str):
+            raise NotImplementedError(
+                "loading a LoRA adapter from a checkpoint path is not ported yet: it needs "
+                "train/checkpoint.py:restore_pytree, which comes with the port's Train slice; "
+                "pass the weights as a dict"
+            )
+        self.engine.add_lora(name, path_or_weights)
+        return True
+
+    def unload_lora(self, name: str) -> bool:
+        self.engine.remove_lora(name)
+        return True
+
+    def list_loras(self) -> list[str]:
+        return self.engine.list_loras()
 
     def _lora_error(self, body: dict):
-        """OpenAI-style 404 for an adapter this replica does not serve (no
-        adapter is loadable before the LoRA slice)."""
+        """OpenAI-style 404 for an unknown adapter, instead of a raw
+        KeyError escaping as a 500."""
         lora = body.get("_lora")
-        if lora:
+        if lora and lora not in self.engine.list_loras():
             return {
                 "error": {
                     "message": f"LoRA adapter {lora!r} not found on "
@@ -59,7 +84,7 @@ class LLMServer:
             return err
         prompt = body.get("prompt", "")
         params = _sampling(body)
-        out = self.engine.generate(prompt, sampling_params=params)
+        out = self.engine.generate(prompt, sampling_params=params, lora=body.get("_lora"))
         return {
             "id": f"cmpl-{out.request_id}",
             "object": "text_completion",
@@ -86,7 +111,7 @@ class LLMServer:
         messages = body.get("messages", [])
         prompt = self._render_chat(messages)
         params = _sampling(body)
-        out = self.engine.generate(prompt, sampling_params=params)
+        out = self.engine.generate(prompt, sampling_params=params, lora=body.get("_lora"))
         return {
             "id": f"chatcmpl-{out.request_id}",
             "object": "chat.completion",
@@ -116,7 +141,7 @@ class LLMServer:
             return
         prompt = body.get("prompt", "")
         params = _sampling(body)
-        req = self.engine.submit(prompt, sampling_params=params)
+        req = self.engine.submit(prompt, sampling_params=params, lora=body.get("_lora"))
         created = int(time.time())
         for inc in self.engine.drain(req):
             yield {
@@ -146,7 +171,7 @@ class LLMServer:
             return
         prompt = self._render_chat(body.get("messages", []))
         params = _sampling(body)
-        req = self.engine.submit(prompt, sampling_params=params)
+        req = self.engine.submit(prompt, sampling_params=params, lora=body.get("_lora"))
         created = int(time.time())
         first = True
         for inc in self.engine.drain(req):

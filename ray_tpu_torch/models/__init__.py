@@ -1,6 +1,6 @@
-"""ray_tpu_torch.models — the Llama decoder in PyTorch: its training
-forward and loss, the train step (``models.training``) and the serving
-half."""
+"""ray_tpu_torch.models — the Llama decoder in PyTorch (dense or MoE): its
+training forward and loss, the train step (``models.training``) and the
+serving half with stacked multi-LoRA adapters."""
 
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.llama import (
@@ -9,6 +9,7 @@ from ray_tpu_torch.models.llama import (
     forward,
     forward_hidden,
     init_kv_cache,
+    init_lora_stack,
     init_params,
     loss_fn,
     prefill,
@@ -20,6 +21,7 @@ __all__ = [
     "forward",
     "forward_hidden",
     "init_kv_cache",
+    "init_lora_stack",
     "init_params",
     "loss_fn",
     "params_from_jax",

@@ -10,10 +10,12 @@ feeds both packages in the tests.
 Ported: the config, parameter init, the training forward
 (``forward_hidden``, ``forward``, ``loss_fn``; causal attention through the
 CUDA flash-attention kernels for ``attention="flash"``/``"splash"`` on the
-card) and the decode path (``init_kv_cache``, ``prefill``,
-``decode_step``). MoE layers, LoRA deltas, ``remat_policy="dots"`` and the
-mesh-sharded paths (ring/Ulysses attention, pipeline stages) come in later
-slices.
+card; per-layer remat, "full" or "dots"), the routed MoE FFN
+(``parallel/moe.py``) in training and, dropless, in serving, and the decode
+path (``init_kv_cache``, ``prefill``, ``decode_step``) with stacked
+multi-LoRA adapters (``init_lora_stack``). The mesh-sharded paths
+(ring/Ulysses attention, pipeline stages, expert parallelism) come with the
+multi-device slice.
 """
 
 from __future__ import annotations
@@ -23,12 +25,17 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy, matmul_fp32_out
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.rmsnorm import add_rmsnorm
+from ray_tpu_torch.parallel import moe
 from ray_tpu_torch.parallel.ring_attention import dense_attention
 
 
@@ -47,7 +54,8 @@ class LlamaConfig:
     # route rmsnorm through the CUDA kernel (ray_tpu_torch.ops.rmsnorm)
     fused_rmsnorm: bool = False
     tie_embeddings: bool = False
-    moe_experts: int = 0  # >0: MoE FFN (decode raises until its slice)
+    # >0: every layer's FFN is a top-k routed expert bank (parallel/moe.py)
+    moe_experts: int = 0
     # 'full' | 'flash' | 'splash' | 'ring' | 'ulysses': flash and splash run
     # the CUDA flash-attention kernels on the card; the rest (and flash/
     # splash on the CPU) run dense_attention, as the JAX package does off
@@ -57,13 +65,14 @@ class LlamaConfig:
     fused_ce: bool = True
     # per-layer torch.utils.checkpoint in forward_hidden
     remat: bool = True
-    remat_policy: str = "full"  # 'dots' is not ported yet (raises)
-    # The fields below are the JAX config's, read by later slices (MoE,
-    # pipelining); they are here so the JAX package's presets and
-    # ModelConfig.model_kwargs resolve unchanged.
+    # 'full' = recompute everything in backward; 'dots' = save matmul
+    # outputs, recompute the rest (jax.checkpoint_policies.dots_saveable)
+    remat_policy: str = "full"
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    # the JAX config's pipeline field, read by the multi-device slice; here
+    # so the JAX package's presets and ModelConfig.model_kwargs resolve
     pp_microbatches: int = 0
 
     @property
@@ -243,11 +252,6 @@ def _attention(q, k, v, cfg: LlamaConfig):
 def _layer(layer_params, x, positions, cfg: LlamaConfig, tables=None):
     """One transformer block. Returns (x, aux): aux is the MoE
     load-balancing loss, 0.0 for dense layers."""
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "the MoE training forward is not ported yet: it comes with the port's "
-            "MoE/multi-device slice"
-        )
     p = layer_params
     B, T, e = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -261,9 +265,45 @@ def _layer(layer_params, x, positions, cfg: LlamaConfig, tables=None):
     x = x + attn.reshape(B, T, H * D) @ p["wo"].reshape(H * D, e)
 
     h = _rmsnorm(x, p["mlp_norm"], cfg.rms_eps, cfg.fused_rmsnorm)
+    if cfg.moe_experts:
+        y, aux = _moe_ffn(p, h, cfg)
+        return x + y, aux
     ff = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
     x = x + ff @ p["w_down"]
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _moe_ffn(p, h, cfg: LlamaConfig):
+    """Routed expert FFN of one layer, with capacity (``moe.moe_dense``).
+    h: [B, T, e] -> ([B, T, e], aux)."""
+    B, T, e = h.shape
+    bank = {"router": p["moe_router"], "w_gate": p["moe_w_gate"], "w_up": p["moe_w_up"],
+            "w_down": p["moe_w_down"]}
+    y, aux = moe.moe_dense(
+        bank, h.reshape(B * T, e), num_experts=cfg.moe_experts,
+        top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+    )
+    return y.view(B, T, e).to(h.dtype), aux
+
+
+# The matmul ops that "dots" saves: what ``@``, ``einsum`` and F.linear
+# reach at the dispatcher.
+_DOTS = frozenset(
+    op.default for op in (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+                          torch.ops.aten.baddbmm)
+)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context():
+    """Selective checkpointing for "dots": matmul outputs are kept, every
+    other op (norms, RoPE, softmax, SwiGLU, the attention kernels, which
+    are no matmul ops at the dispatcher, and the buffers they fill) runs
+    again in the backward pass."""
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def _embed_lookup(table, tokens, cfg: LlamaConfig):
@@ -289,11 +329,12 @@ def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None, with_aux: b
     absolute RoPE positions (default 0..T-1). ``cfg.remat`` runs each layer
     under ``torch.utils.checkpoint`` (non-reentrant): its activations are
     recomputed in the backward pass, the counterpart of the JAX package's
-    per-layer ``jax.checkpoint``; ``remat_policy="dots"`` is not ported."""
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP Queue A); use 'full'"
-        )
+    per-layer ``jax.checkpoint``. ``remat_policy="dots"`` keeps the matmul
+    outputs and recomputes the rest (``_remat_context``); any other policy
+    recomputes everything, as in the JAX package."""
+    remat_kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        remat_kw["context_fn"] = _remat_context
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     if positions is None:
@@ -305,7 +346,7 @@ def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None, with_aux: b
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for lp in _layer_params(params, cfg):
         if cfg.remat:
-            x, a = checkpoint(_layer, lp, x, positions, cfg, tables, use_reentrant=False)
+            x, a = checkpoint(_layer, lp, x, positions, cfg, tables, **remat_kw)
         else:
             x, a = _layer(lp, x, positions, cfg, tables)
         aux = aux + a
@@ -345,24 +386,56 @@ def loss_fn(params, batch, cfg: LlamaConfig):
         mask = batch.get("mask")
         if mask is not None:
             mask = mask[:, 1:]
-    # (the MoE aux term, moe_aux_weight * aux, comes with the MoE layers)
-    x = forward_hidden(params, tokens, cfg)
+    x, aux = forward_hidden(params, tokens, cfg, with_aux=True)
     if cfg.fused_ce:
-        return fused_cross_entropy(x, _unembed(params, cfg), labels, mask=mask)
-    logits = _project_logits(x, params, cfg)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
-    if mask is not None:
-        mask = mask.to(nll.dtype)
-        return (nll * mask).sum() / mask.sum().clamp(min=1)
-    return nll.mean()
+        base = fused_cross_entropy(x, _unembed(params, cfg), labels, mask=mask)
+    else:
+        logits = _project_logits(x, params, cfg)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+        if mask is not None:
+            mask = mask.to(nll.dtype)
+            base = (nll * mask).sum() / mask.sum().clamp(min=1)
+        else:
+            base = nll.mean()
+    if cfg.moe_experts:
+        return base + cfg.moe_aux_weight * aux
+    return base
 
 
 # ---------------------------------------------------------------------------
 # Decode path (serving): KV cache prefill + single-token step.
 # ---------------------------------------------------------------------------
 
-_LATER = "not ported yet: LoRA and MoE decode come with the port's LoRA/MoE slice"
+def _moe_decode_ffn(p, h, cfg: LlamaConfig):
+    """Dropless routed expert FFN for serving. h: [B, T, e].
+
+    Serving never drops a token: every expert runs on the batch and the
+    outputs mix with the renormalised top-k gates (``moe.topk_gates``, the
+    training path's gate math), as the JAX package's ``_moe_decode_ffn``
+    does. Equal to ``moe_dense`` wherever its capacity does not overflow.
+    Up to 64 tokens (decode steps): one batched product over all experts,
+    every expert's weights read once, static shapes (the step is one CUDA
+    graph). More (prefill chunks): expert by expert, so the transient is
+    [G, d_ff], not [E, G, d_ff]."""
+    B, T, e = h.shape
+    E = cfg.moe_experts
+    g = h.reshape(B * T, e)
+    _, gate_vals, gate_idx = moe.topk_gates({"router": p["moe_router"]}, g, cfg.moe_top_k)
+    # wge[g, e] = sum_k gate_vals[g, k] * [gate_idx[g, k] == e]
+    wge = (F.one_hot(gate_idx, E).float() * gate_vals[..., None]).sum(1).to(g.dtype)
+    if g.shape[0] <= 64:
+        # [G, e] @ [E, e, f] -> [E, G, f]: batched over the experts' own
+        # weights (an einsum here would copy the bank to one [e, E*f] matrix)
+        ff = F.silu(torch.matmul(g, p["moe_w_gate"])) * torch.matmul(g, p["moe_w_up"])
+        out = torch.bmm(ff, p["moe_w_down"])  # [E, G, e]
+        y = torch.einsum("egd,ge->gd", out, wge)
+    else:
+        y = torch.zeros_like(g)
+        for ei in range(E):
+            ff = F.silu(g @ p["moe_w_gate"][ei]) * (g @ p["moe_w_up"][ei])
+            y = y + (ff @ p["moe_w_down"][ei]) * wge[:, ei, None]
+    return y.view(B, T, e)
 
 
 def init_kv_cache(
@@ -382,6 +455,27 @@ def init_kv_cache(
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "length": torch.zeros((batch_size,), dtype=torch.int32, device=device),
     }
+
+
+def init_lora_stack(
+    cfg: LlamaConfig, n_adapters: int, rank: int, device: Union[str, torch.device, None] = None,
+) -> dict[str, torch.Tensor]:
+    """Zeroed stacked LoRA adapters on q and v for the decode path:
+    ``[L, n_adapters + 1, ...]``, slot 0 all zero (the base model). Each
+    sequence gathers its own slot, so one decode step serves any mix of
+    adapters. ``device`` is CUDA unless the caller names another."""
+    device = resolve_device(device)
+    L, e, h, kv, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = n_adapters + 1
+    shapes = {"wq_a": (L, n, e, rank), "wq_b": (L, n, rank, h, hd),
+              "wv_a": (L, n, e, rank), "wv_b": (L, n, rank, kv, hd)}
+    return {k: torch.zeros(s, dtype=cfg.dtype, device=device) for k, s in shapes.items()}
+
+
+def _lora_delta(h, a, b, ids):
+    """(h . A[id]) . B[id] per row: h [B, T, e], a [n, e, r], b [n, r, H, D],
+    ids [B] -> [B, T, H, D]. No alpha/rank scaling, as in the JAX package."""
+    return torch.einsum("btr,brhd->bthd", torch.einsum("bte,ber->btr", h, a[ids]), b[ids])
 
 
 def _write_plan(positions: torch.Tensor, valid: Optional[torch.Tensor], S: int):
@@ -424,6 +518,9 @@ def _cache_write(cache_l, new, plan, bi, ki):
     cache_l.index_put_((bi, ki, write_pos[:, None, :]), vals)
 
 
+_MOE_KEYS = ("moe_router", "moe_w_gate", "moe_w_up", "moe_w_down")
+
+
 def _decode_forward(
     params, cache, tokens, positions, cfg: LlamaConfig, valid=None,
     loras=None, adapter_ids=None, with_logits: bool = True, logits_at=None,
@@ -437,14 +534,14 @@ def _decode_forward(
     gets the same effect from ``fori_loop`` with donated buffers); its
     ``length`` grows by T. ``logits_at`` [B] projects the LM head at only
     that position per sequence ([B, 1, V]); ``with_logits=False`` skips the
-    head (mid-chunk prefill)."""
-    if loras is not None:
-        raise NotImplementedError(f"LoRA decode is {_LATER}")
-    if cfg.moe_experts:
-        raise NotImplementedError(f"MoE decode is {_LATER}")
+    head (mid-chunk prefill). ``loras`` (``init_lora_stack``) and
+    ``adapter_ids`` [B] (0 = the base model) add each row's adapter delta to
+    q and v before RoPE."""
     B, T = tokens.shape
     S = cache["k"].shape[3]
     dev = cache["k"].device
+    if loras is not None:
+        adapter_ids = torch.as_tensor(adapter_ids, device=dev).long()
     KV, G, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     e = cfg.d_model
     eps, fused = cfg.rms_eps, cfg.fused_rmsnorm
@@ -474,6 +571,9 @@ def _decode_forward(
         q = (h @ params["wq"][l].reshape(e, -1)).view(B, T, cfg.n_heads, D)
         k = (h @ params["wk"][l].reshape(e, -1)).view(B, T, KV, D)
         v = (h @ params["wv"][l].reshape(e, -1)).view(B, T, KV, D)
+        if loras is not None:
+            q = q + _lora_delta(h, loras["wq_a"][l], loras["wq_b"][l], adapter_ids)
+            v = v + _lora_delta(h, loras["wv_a"][l], loras["wv_b"][l], adapter_ids)
         q = _rope(q, positions, cfg.rope_theta, tables)
         k = _rope(k, positions, cfg.rope_theta, tables)
         ck, cv = cache["k"][l], cache["v"][l]  # views: writes land in the cache
@@ -488,8 +588,11 @@ def _decode_forward(
         attn = torch.einsum("bktgs,bksd->btkgd", w, cv).reshape(B, T, cfg.n_heads * D)
         x, h = add_norm(x, attn @ params["wo"][l].reshape(-1, e), params["mlp_norm"][l])
 
-        ff = F.silu(h @ params["w_gate"][l]) * (h @ params["w_up"][l])
-        delta = ff @ params["w_down"][l]
+        if cfg.moe_experts:
+            delta = _moe_decode_ffn({k: params[k][l] for k in _MOE_KEYS}, h, cfg)
+        else:
+            ff = F.silu(h @ params["w_gate"][l]) * (h @ params["w_up"][l])
+            delta = ff @ params["w_down"][l]
         if l + 1 < cfg.n_layers:
             x, h = add_norm(x, delta, params["attn_norm"][l + 1])
 

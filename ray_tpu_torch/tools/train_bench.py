@@ -55,10 +55,11 @@ def make_batch(cfg: LlamaConfig, batch: int, seq: int, seed: int = 0, device="cu
 
 
 def run(cfg: LlamaConfig, batch: int = BATCH, seq: int = SEQ, warmup: int = 2, steps: int = 6,
-        seed: int = 0) -> dict:
+        seed: int = 0, optimizer=None) -> dict:
     """Warm-up steps, then ``steps`` timed steps; returns the measurements
-    plus the live ``state``, ``step_fn`` and ``batch`` (for profiling)."""
-    init_fn, step_fn = make_train_step(cfg)
+    plus the live ``state``, ``step_fn`` and ``batch`` (for profiling).
+    ``optimizer`` defaults to ``make_train_step``'s."""
+    init_fn, step_fn = make_train_step(cfg, optimizer)
     state = init_fn(seed)
     data = make_batch(cfg, batch, seq, seed)
     for _ in range(warmup):

@@ -250,14 +250,24 @@ def test_flash_attention_bwd_is_deterministic_on_card():
         assert torch.equal(a, b), what
 
 
-@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
-def test_train_forward_launch_counts_on_card(remat):
+TRAIN_COUNT_CASES = {
+    "remat": dict(remat=True),
+    "no_remat": dict(remat=False),
+    "dots": dict(remat=True, remat_policy="dots"),
+    "moe": dict(remat=True, moe_experts=4, moe_top_k=2),
+}
+
+
+@pytest.mark.parametrize("case", list(TRAIN_COUNT_CASES))
+def test_train_forward_launch_counts_on_card(case):
     """Through loss_fn and its backward: remat re-runs each layer's forward
-    (and so its attention kernel) in the backward pass."""
+    (and so its attention kernel) in the backward pass; under "dots" too,
+    since the attention kernel is no matmul op that the policy saves."""
     _need_card()
     L = 3
+    remat = TRAIN_COUNT_CASES[case]["remat"]
     cfg = LlamaConfig.tiny(d_model=256, n_heads=2, n_kv_heads=1, n_layers=L, dtype=torch.bfloat16,
-                           attention="splash", remat=remat, fused_ce=False)
+                           attention="splash", fused_ce=False, **TRAIN_COUNT_CASES[case])
     params = init_params(cfg, seed=0, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (2, 65), device="cuda")
     reset_launches()
@@ -600,3 +610,96 @@ def test_decode_graph_equals_eager_steps_on_card():
             cache[k].copy_(control_cache[k])
         control = run(False)
         assert not all(torch.equal(c[1], w[1]) for c, w in zip(control, want))
+
+
+def _graph_vs_eager(cfg, params, lora_kw, ids_at_step=None):
+    """Replays of a DecodeGraph against eager decode_steps on a cloned cache
+    (bit for bit), the next tokens, and each step's adapter ids when
+    ``ids_at_step`` gives them, written in place before each replay."""
+    B, S = 4, 48
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (B, 6), generator=gen, device="cuda", dtype=torch.int32)
+    with torch.inference_mode():
+        cache = init_kv_cache(cfg, B, S, "cuda")
+        logits, _ = prefill(params, cache, prompt, cfg, **lora_kw)
+        first = logits.argmax(-1).to(torch.int32)
+        eager_cache = {k: v.clone() for k, v in cache.items()}
+        tokens = first.clone()
+        graph = engine_mod.DecodeGraph(params, cache, tokens, cfg, **lora_kw)
+        tok = first
+        for step in range(6):
+            if ids_at_step is not None:
+                lora_kw["adapter_ids"].copy_(ids_at_step(step))
+            got = graph.replay().clone()
+            want, _ = decode_step(params, eager_cache, tok, cfg, **lora_kw)
+            assert torch.equal(got, want), step
+            tok = want.argmax(-1).to(torch.int32)
+            tokens.copy_(tok)
+        assert torch.equal(cache["k"], eager_cache["k"]) and torch.equal(cache["v"], eager_cache["v"])
+
+
+def test_moe_decode_graph_equals_eager_steps_on_card():
+    """The MoE decode step (G = 4 <= 64: every expert batched, static
+    shapes) captured as one graph gives eager decode_step's logits bit for
+    bit."""
+    _need_card()
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, fused_rmsnorm=True, n_layers=3, moe_experts=4)
+    _graph_vs_eager(cfg, init_params(cfg, seed=3, device="cuda"), {})
+
+
+def test_lora_decode_graph_equals_eager_with_changing_adapters_on_card():
+    """The LoRA decode step as one graph: the adapter ids are rewritten in
+    place between replays (each row changes adapter), and every replay
+    equals eager decode_step with the same ids bit for bit."""
+    _need_card()
+    from ray_tpu_torch.models.llama import LlamaConfig, init_lora_stack, init_params
+
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16, fused_rmsnorm=True, n_layers=3)
+    loras = init_lora_stack(cfg, 2, 4, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for stack in loras.values():
+        stack[:, 1:].normal_(0.0, 0.5, generator=gen)
+    ids = torch.zeros(4, dtype=torch.int32, device="cuda")
+    base = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device="cuda")
+    _graph_vs_eager(cfg, init_params(cfg, seed=4, device="cuda"), {"loras": loras, "adapter_ids": ids},
+                    ids_at_step=lambda step: (base + step) % 3)
+
+
+def test_moe_and_lora_engines_decode_by_graph_replay_on_card():
+    """A MoE engine and a LoRA engine on the card: every decode step is a
+    graph replay, and the greedy tokens equal the eager loop's (MoE) or
+    the sequential run's of each request in a mixed batch (LoRA)."""
+    _need_card()
+    sp = SamplingParams(max_tokens=9, temperature=0.0, ignore_eos=True)
+    eng = engine_mod.TorchEngine(LLMConfig(
+        model=ModelConfig(model_id="tiny", tokenizer="byte", seed=0,
+                          model_kwargs={"fused_rmsnorm": True, "moe_experts": 4}),
+        engine=EngineConfig(max_num_seqs=4, max_seq_len=64, prefill_buckets=(16, 32, 64),
+                            dtype="float32", decode_steps=4, enable_prefix_caching=False)),
+        device="cuda")
+    try:
+        out = eng.generate("experts on the card", sampling_params=sp)
+        assert out.token_ids == _eager_greedy(eng, "experts on the card", 9)
+        stats = eng.get_stats()
+        assert stats["decode_graph_replays"] == stats["decode_steps"] > 0
+    finally:
+        eng.shutdown()
+    eng = _graph_engine(max_loras=2, lora_rank=4)
+    try:
+        gen = torch.Generator().manual_seed(5)
+        for name in ("a", "b"):
+            eng.add_lora(name, {k: torch.randn(v.shape[:1] + v.shape[2:], generator=gen) * 0.5
+                                for k, v in eng.loras.items()})
+        jobs = [("one", "a"), ("two", "b"), ("three", None), ("four", "a")]
+        seq = [eng.generate(p, sampling_params=sp, lora=lora).token_ids for p, lora in jobs]
+        reqs = [eng.submit(p, sampling_params=sp, lora=lora) for p, lora in jobs]
+        for r in reqs:
+            assert r.done.wait(timeout=120) and r.error is None
+        assert [r.out_tokens for r in reqs] == seq
+        assert seq[0] != eng.generate("one", sampling_params=sp).token_ids
+        stats = eng.get_stats()
+        assert stats["decode_graph_replays"] == stats["decode_steps"] > 0
+    finally:
+        eng.shutdown()

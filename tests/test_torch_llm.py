@@ -267,12 +267,18 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        TorchEngine(LLMConfig(engine=EngineConfig(max_loras=1)), device="cpu")
-    moe = LLMConfig(model=ModelConfig(model_kwargs={"moe_experts": 4}),
-                    engine=EngineConfig(max_seq_len=32, prefill_buckets=(32,)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TorchEngine(moe, device="cpu")
+    """What the port still lacks: tensor/sequence-parallel serving,
+    checkpoint loading and a LoRA adapter read from a checkpoint path."""
+    small = dict(max_seq_len=32, prefill_buckets=(32,))
+    for kw in ({"tensor_parallel_degree": 2}, {"sequence_parallel_degree": 2}):
+        with pytest.raises(NotImplementedError, match="tensor/sequence-parallel"):
+            TorchEngine(LLMConfig(engine=EngineConfig(**small, **kw)), device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint loading"):
+        TorchEngine(LLMConfig(model=ModelConfig(checkpoint_path="ckpt"),
+                              engine=EngineConfig(**small)), device="cpu")
+    cfg = LLMConfig(engine=EngineConfig(max_loras=1, **small), lora_adapters={"a": "ckpt"})
+    with pytest.raises(NotImplementedError, match="checkpoint path"):
+        LLMServer(cfg, device="cpu")
 
 
 # ---- import boundary ---------------------------------------------------------

@@ -324,16 +324,66 @@ def test_untied_head_and_no_gqa_match_jax():
     np.testing.assert_allclose(_np(tlog), np.asarray(jlog), **TOL)
 
 
-def test_lora_and_moe_decode_not_ported_yet():
-    tcfg = tl.LlamaConfig.tiny()
-    tp = tl.init_params(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tl.decode_step(tp, tl.init_kv_cache(tcfg, 1, 8, "cpu"), torch.zeros(1, dtype=torch.int32),
-                       tcfg, loras={})
-    moe = tl.LlamaConfig.tiny(moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.prefill(tl.init_params(moe, device="cpu"), tl.init_kv_cache(moe, 1, 8, "cpu"),
-                   torch.zeros(1, 2, dtype=torch.int32), moe)
+def _entry_logits():
+    """The JAX entry's forward on its own weights, and the port's entry
+    function on the same weights (bf16 on both)."""
+    import __graft_entry__ as jentry
+
+    from ray_tpu_torch import graft_entry
+
+    jfn, (jp, jtokens) = jentry.entry()
+    fn, (own, tokens) = graft_entry.entry("cpu")
+    tp = params_from_jax(jax.device_get(jp), "cpu")
+    with torch.no_grad():
+        got = fn(tp, tokens).float().numpy()
+    return jp, jtokens, np.asarray(jax.jit(jfn)(jp, jtokens), np.float32), own, tokens, tp, got
+
+
+def _rel_rms(a, b):
+    return float(np.sqrt(((a - b) ** 2).mean() / (b**2).mean()))
+
+
+def test_graft_entry_twin_matches_the_jax_entry():
+    """The port's entry() is the JAX entry's configuration, tokens and
+    parameter layout, and computes its function. Limits, on the logits'
+    RMS error relative to their RMS: bf16 on both, 0.25; fp32 on both (the
+    same bf16 weights upcast), 1e-2. These weights are ill-conditioned:
+    init_params draws wq/wk with fan_in = the head count, so attention
+    scores have a std near 64 and the softmax is nearly one-hot. On the CPU
+    each package's bf16 logits lie 0.56 from its own fp32 logits, the
+    port's fp32 lies 8.2e-4 from its fp64, and the two bf16 runs, which
+    round at different points, lie 0.16 apart (fp32: 2.1e-3)."""
+    from ray_tpu_torch import graft_entry
+
+    jp, jtokens, want, own, tokens, tp, got = _entry_logits()
+    assert got.shape == want.shape == (2, 128, 4096) and np.isfinite(got).all()
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
+    jcfg = jl.LlamaConfig(vocab_size=4096, d_model=512, n_layers=4, n_heads=8, n_kv_heads=4,
+                          d_ff=1408, max_seq_len=512, remat=False)
+    tcfg = graft_entry.entry_config()
+    assert {f.name: getattr(tcfg, f.name) for f in dataclasses.fields(jcfg) if f.name != "dtype"} == \
+        {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name != "dtype"}
+    assert tcfg.dtype == torch.bfloat16 and jcfg.dtype == jnp.bfloat16
+    assert {k: (tuple(v.shape), v.dtype) for k, v in own.items()} == \
+        {k: (tuple(v.shape), v.dtype) for k, v in tp.items()}
+    assert _rel_rms(got, want) < 0.25
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    want32 = np.asarray(jl.forward(jp32, jtokens, dataclasses.replace(jcfg, dtype=jnp.float32)))
+    with torch.no_grad():
+        got32 = tl.forward({k: v.float() for k, v in tp.items()}, tokens,
+                           dataclasses.replace(tcfg, dtype=torch.float32)).numpy()
+    assert _rel_rms(got32, want32) < 1e-2
+
+
+def test_graft_entry_is_seeded_and_needs_cuda_unless_cpu_asked(monkeypatch):
+    from ray_tpu_torch import graft_entry
+
+    _, (a, ta) = graft_entry.entry("cpu")
+    _, (b, tb) = graft_entry.entry("cpu")
+    assert all(torch.equal(a[k], b[k]) for k in a) and torch.equal(ta, tb)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.entry()
 
 
 def test_model_entry_points_need_cuda_unless_cpu_asked(monkeypatch):

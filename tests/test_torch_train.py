@@ -23,6 +23,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import llama as jl
 from ray_tpu.models import training as jt
@@ -146,14 +147,77 @@ def test_remat_on_and_off_give_equal_grads():
         torch.testing.assert_close(g1[name], g0[name], rtol=1e-6, atol=1e-7)
 
 
-def test_not_yet_ported_options_raise():
-    _, tp = _params(jl.LlamaConfig.tiny(), seed=0)
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tl.forward_hidden(tp, tokens, tl.LlamaConfig.tiny(remat=True, remat_policy="dots"))
-    moe = tl.LlamaConfig.tiny(moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.forward_hidden(tl.init_params(moe, 0, "cpu"), tokens, moe)
+class _CountDots(TorchDispatchMode):
+    """Counts the matmul ops that "dots" saves, as they reach the
+    dispatcher."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in tl._DOTS
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_dots(tp, batch, tcfg):
+    """(loss, grads, matmuls run by the forward, matmuls run by the backward)."""
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    with _CountDots() as fwd:
+        loss = tl.loss_fn(leaves, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+    with _CountDots() as bwd:
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss, dict(zip(leaves, grads)), fwd.n, bwd.n
+
+
+_DOTS_CASES = {"dense": {}, "moe": {"moe_experts": 4, "moe_top_k": 2}}
+
+
+@pytest.mark.parametrize("kind", list(_DOTS_CASES))
+def test_remat_dots_equals_full_and_recomputes_no_matmul(kind):
+    """"dots" gives "full"'s loss and grads (rtol 1e-6). Its backward runs
+    exactly the matmuls of a backward without remat (every forward matmul
+    output is saved), while "full" re-runs the layers' forward matmuls.
+    Any other policy is full remat, as in the JAX package."""
+    jcfg, base = _cfgs(**_DOTS_CASES[kind])
+    _, tp = _params(jcfg, seed=15)
+    batch = _batch(jcfg, (2, 13), seed=15, mask=True)
+    runs = {
+        name: _backward_dots(tp, batch, dataclasses.replace(base, **kw))
+        for name, kw in (("none", {"remat": False}),
+                         ("full", {"remat": True, "remat_policy": "full"}),
+                         ("dots", {"remat": True, "remat_policy": "dots"}),
+                         ("other", {"remat": True, "remat_policy": "everything"}))
+    }
+    loss, grads, _, _ = runs["full"]
+    for name in ("dots", "other", "none"):
+        torch.testing.assert_close(runs[name][0], loss, rtol=1e-6, atol=0)
+        for k, g in grads.items():
+            torch.testing.assert_close(runs[name][1][k], g, rtol=1e-6, atol=1e-7, msg=k)
+    with _CountDots() as layers:  # the layers' own matmuls: forward_hidden's
+        tl.forward_hidden(tp, torch.from_numpy(batch["tokens"][:, :-1]), base)
+    bwd_none = runs["none"][3]
+    assert layers.n > 0 and runs["none"][2] == runs["full"][2] == runs["dots"][2]
+    assert runs["dots"][3] == bwd_none
+    # "full" re-runs the layers' matmuls, up to each layer's last whose
+    # output no backward reads (the checkpoint stops recomputing once it
+    # holds every tensor the backward needs)
+    assert runs["full"][3] == runs["other"][3]
+    assert bwd_none + layers.n - base.n_layers <= runs["full"][3] <= bwd_none + layers.n
+
+
+@pytest.mark.parametrize("kind", list(_DOTS_CASES))
+def test_remat_dots_matches_jax_dots(kind):
+    jcfg, tcfg = _cfgs(remat=True, remat_policy="dots", **_DOTS_CASES[kind])
+    jp, tp = _params(jcfg, seed=16)
+    batch = _batch(jcfg, (2, 13), seed=16, mask=False)
+    jloss, jgrads = jax.value_and_grad(jl.loss_fn)(jp, {"tokens": jnp.asarray(batch["tokens"])}, jcfg)
+    loss, grads, _, _ = _backward_dots(tp, batch, tcfg)
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+    for name, g in grads.items():
+        want = np.asarray(jgrads[name])
+        np.testing.assert_allclose(g.numpy(), want, rtol=2e-4, atol=2e-4 * np.abs(want).max(),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("mask", [False, True], ids=["nomask", "mask"])
