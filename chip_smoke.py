@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path
 (dense, MoE and multi-LoRA), its training path (dense and MoE, remat "full"
-and "dots"), its int8 weight path and the entry() twin.
+and "dots"), its int8 weight path, the entry() twin, and the Train layer's
+train -> checkpoint -> serve path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -85,6 +86,14 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 turns with "full" (full, dots, dots, full).
  14. graft_entry — ray_tpu_torch.graft_entry.entry() in bf16 and fp32 on
                 the card against fp64 on the CPU, with a broken control.
+ 15. train_serve — train -> checkpoint -> serve: TorchTrainer runs the
+                example train loop on one rank (a spawned process, NCCL) at
+                the train phase's configuration, fails on purpose after
+                step 3, resumes from its step-2 checkpoint (the whole train
+                state) to the same step-3 loss, and reports the params;
+                LLMServer serves that checkpoint (weights' checksums equal,
+                prefill logits within the bf16 limit, a swapped-leaf copy
+                refused, 16 x 32 greedy tokens, graph replays).
 Then the kernels summary line, the nvidia-smi line, and, last,
 {"ok": true, "device": {...}}.
 
@@ -1414,6 +1423,227 @@ def phase_graft_entry(torch, card: str) -> dict:
     return out
 
 
+TRAIN_SERVE_WIDTHS = dict(vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=16,
+                          d_ff=8192)
+
+
+def _swapped_copy(src: str, dst: str, a: str, b: str) -> None:
+    """A copy of the checkpoint at ``src`` whose leaves ``a`` and ``b``
+    trade names: the same data file (hard-linked), the manifest's keys
+    swapped."""
+    import os
+    import shutil
+
+    from ray_tpu_torch.train.checkpoint import _PYTREE_DATA, _PYTREE_MANIFEST, read_manifest
+
+    os.makedirs(dst)
+    try:
+        os.link(os.path.join(src, _PYTREE_DATA), os.path.join(dst, _PYTREE_DATA))
+    except OSError:
+        shutil.copyfile(os.path.join(src, _PYTREE_DATA), os.path.join(dst, _PYTREE_DATA))
+    manifest = read_manifest(src)
+    manifest["keys"] = [{a: b, b: a}.get(k, k) for k in manifest["keys"]]
+    with open(os.path.join(dst, _PYTREE_MANIFEST), "w") as f:
+        json.dump(manifest, f)
+
+
+def phase_train_serve(torch, card: str, train: dict) -> dict:
+    """Train -> checkpoint -> serve at the bench width, through the entry
+    points a user calls.
+
+    TorchTrainer runs ray_tpu_torch.examples.train_llama_dp.train_loop on
+    one rank (a spawned process, one card, an NCCL process group; the batch
+    seed goes through broadcast_from_rank_zero) on bench.py's train config
+    (1.20 B params, batch 4 x 2048, remat, the attention kernels). Attempt
+    0 runs 2 steps, reports the whole train state (params, AdamW moments,
+    step) as a checkpoint, runs step 3 and raises on purpose. Attempt 1
+    (FailureConfig(max_failures=1)) resumes from the step-2 checkpoint,
+    re-runs step 3 (its loss must equal attempt 0's), runs step 4 and
+    reports the params as the final checkpoint, with their bit checksums
+    and the prefill logits of a probe prompt. Every step launches the
+    attention kernels 2L / L / L times; no rank outlives fit().
+
+    LLMServer then serves the final checkpoint (ModelConfig.checkpoint_path,
+    the bench widths, fused RMSNorm, 16 slots): the restored weights'
+    checksums equal the rank's; the probe's prefill logits lie within the
+    numerics phase's bf16 limit (5e-2 relative RMS) of the rank's; 16
+    concurrent greedy requests x 32 tokens complete, every decode step a
+    graph replay, RMSNorm launches as counted. Broken control: a copy of
+    the checkpoint with the wq and wk leaves swapped (equal shapes at
+    16/16 heads) restores and must fail the logits limit; that restore's
+    peak device memory is one copy of the params."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.examples import train_llama_dp as ex
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, LLMServer, ModelConfig
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.models.llama import param_template
+    from ray_tpu_torch.ops import rmsnorm
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig, RunConfig, ScalingConfig,
+                                     TorchTrainer, restore_state_dict)
+
+    limit = 5e-2  # the numerics phase's bf16 limit
+    L = TRAIN_SERVE_WIDTHS["n_layers"]
+    serve_kwargs = {**TRAIN_SERVE_WIDTHS, "fused_rmsnorm": True}
+    probe = {"tokens": ByteTokenizer().encode("The port trains, checkpoints and serves one model."),
+             "model_kwargs": serve_kwargs, "max_seq_len": 256}
+    config = {"model": "bench", "steps": 4, "batch": 4, "seq_len": 2048, "seed": 0,
+              "state_checkpoint_at": 2, "fail_once_after": 3, "probe": probe}
+    gc_collect(torch)  # the parent holds no model while the rank runs
+    storage = tempfile.mkdtemp(prefix="train-serve-")
+    try:
+        trainer = TorchTrainer(
+            ex.train_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="train_serve", storage_path=storage,
+                                 failure_config=FailureConfig(max_failures=1),
+                                 checkpoint_config=CheckpointConfig(num_to_keep=1)),
+        )
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        left = [p.name for p in multiprocessing.active_children() if "-rank-" in p.name]
+        if result.error is not None or left:
+            raise AssertionError(f"train_serve: fit failed ({result.error}) or left {left}")
+        h = result.metrics_history
+        if [m["step"] for m in h] != [1, 2, 3, 3, 4]:
+            raise AssertionError(f"train_serve: steps reported {[m['step'] for m in h]}")
+        a0, a1 = h[2], h[3]  # step 3 in attempts 0 and 1
+        if a1.get("resumed_from_step") != 2 or not a1["resumed_from"].endswith(
+                "attempt_000/checkpoint_000001"):
+            raise AssertionError(f"train_serve: attempt 1 did not resume from step 2: {a1}")
+        expected = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                    "flash_attention_bwd_dkdv": L}
+        bad = [m["launches"] for m in h
+               if any(m["launches"][k] != n for k, n in expected.items())]
+        if bad or not all(math.isfinite(m["loss"]) for m in h):
+            raise AssertionError(f"train_serve: attention launches {bad} or a loss not finite")
+        if {m["backend"] for m in h} != {"nccl"}:
+            raise AssertionError(f"train_serve: the rank's process group is not NCCL: {h[0]}")
+        loss_diff = abs(a1["loss"] - a0["loss"])
+        if loss_diff > 1e-6 * abs(a0["loss"]):
+            raise AssertionError(f"train_serve: resumed step-3 loss {a1['loss']} != {a0['loss']}")
+        final = h[-1]
+        ckpt = result.checkpoint.path
+
+        # serving the checkpoint
+        rank_logits = final["probe_logits"]
+        cfg = LLMConfig(
+            model=ModelConfig(model_id="tiny", tokenizer="byte", seed=0, model_kwargs=serve_kwargs,
+                              checkpoint_path=ckpt),
+            engine=EngineConfig(max_num_seqs=16, max_seq_len=256, prefill_buckets=(32, 64, 128, 256),
+                                prefill_chunk=256, decode_steps=8, decode_runahead=1),
+        )
+        t0 = time.perf_counter()
+        server = LLMServer(cfg)
+        engine_init_s = time.perf_counter() - t0
+        eng = server.engine
+        try:
+            if eng.model_cfg != ex.serve_config(probe):
+                raise AssertionError(f"train_serve: served config {eng.model_cfg}")
+            served_checksums = ex.bit_checksums(eng.params)
+            served_logits = ex.probe_logits(eng.params, eng.model_cfg, probe["tokens"])
+            server.completions({"prompt": "warm up " * 12, "max_tokens": 16, "ignore_eos": True})
+            stats0 = eng.get_stats()
+            rmsnorm.launches = 0  # counts from here on are the path's
+            bodies = [{"prompt": p, "max_tokens": 32, "temperature": 0.0, "ignore_eos": True}
+                      for p in _serve_prompts()]
+            outs, wall = _concurrent(server, bodies)
+            launches = rmsnorm.launches
+            delta = _step_delta(stats0, eng.get_stats())
+        finally:
+            eng.shutdown()
+        del server, eng
+        gc_collect(torch)
+        n_norms = 2 * L + 1
+        norms_expected = (n_norms * (delta["decode_steps"] + delta["prefill_final_chunks"])
+                          + (n_norms - 1) * delta["prefill_mid_chunks"])
+
+        # the broken control: wq and wk swapped, restored onto the card
+        ctl_dir = ckpt + "_swapped"
+        _swapped_copy(ckpt, ctl_dir, "wq", "wk")
+        mcfg = ex.serve_config(probe)
+        # bytes the restore asked the allocator for (its blocks may round up
+        # by as much as 1 MiB each: a large block is not split for less)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        swapped = restore_state_dict(ctl_dir, like=param_template(mcfg), device="cuda")
+        torch.cuda.synchronize()
+        ctl_read_s = time.perf_counter() - t0
+        restore_peak = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base
+        param_bytes = sum(t.numel() * t.element_size() for t in swapped.values())
+        ctl_logits = ex.probe_logits(swapped, mcfg, probe["tokens"])
+        del swapped
+        gc_collect(torch)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+    def rel_rms(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+
+    steps_ms = [m["step_ms"] for m in h]
+    gb = 1e9
+    ttft = np.asarray([o.metrics["ttft_s"] for o in outs]) * 1e3
+    out = {
+        "phase": "train_serve", "card": card, "model": "bench.py train config",
+        "params": ex.model_config(config).num_params(), "fit_s": fit_s,
+        "rank_startup_s": trainer._controller.rank_startup_s,
+        "losses": [m["loss"] for m in h], "steps": [m["step"] for m in h],
+        "step_ms": steps_ms,
+        # steps 2 and 4: neither the first step of a process nor a resumed one
+        "steady_step_ms": [h[1]["step_ms"], h[4]["step_ms"]],
+        "train_phase_step_ms": train["step_ms"],
+        "resumed_from": a1["resumed_from"], "step3_loss_attempt0": a0["loss"],
+        "step3_loss_attempt1": a1["loss"], "step3_loss_diff": loss_diff,
+        "step3_bit_equal": a1["loss"] == a0["loss"],
+        "launches": {k: sum(m["launches"][k] for m in h) for k in expected},
+        "launches_per_step": expected,
+        "state_checkpoint_gb": h[1]["checkpoint_bytes"] / gb,
+        "state_checkpoint_write_s": h[1]["checkpoint_write_s"],
+        "state_checkpoint_write_gb_per_s": h[1]["checkpoint_bytes"] / gb / h[1]["checkpoint_write_s"],
+        "state_checkpoint_read_s": a1["checkpoint_read_s"],
+        "state_checkpoint_read_gb_per_s": a1["checkpoint_bytes"] / gb / a1["checkpoint_read_s"],
+        "params_checkpoint_gb": final["checkpoint_bytes"] / gb,
+        "params_checkpoint_write_s": final["checkpoint_write_s"],
+        "params_checkpoint_write_gb_per_s": final["checkpoint_bytes"] / gb / final["checkpoint_write_s"],
+        "params_checkpoint_read_to_card_s": ctl_read_s,
+        "params_checkpoint_read_gb_per_s": param_bytes / gb / ctl_read_s,
+        "engine_init_s": engine_init_s,
+        "checksums_equal": served_checksums == final["checksums"],
+        "logits_rel_rms_err": rel_rms(served_logits, rank_logits),
+        "logits_max_abs_err": float(np.abs(served_logits - rank_logits).max()),
+        "logits_bit_equal": bool(np.array_equal(served_logits, rank_logits)),
+        "logits_limit": limit,
+        "control_logits_rel_rms_err": rel_rms(ctl_logits, rank_logits),
+        "restore_peak_bytes": restore_peak, "param_bytes": param_bytes,
+        "requests": len(bodies), "wall_s_16x32": wall, "out_tok_per_s": 16 * 32 / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)), "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "decode_program_ms_mean": delta["decode_device_ms"] / delta["decode_programs_timed"],
+        "rmsnorm_launches": launches, "rmsnorm_launches_expected": norms_expected, **delta,
+    }
+    emit(out)
+    if not out["checksums_equal"]:
+        raise AssertionError("train_serve: the served weights' checksums differ from the rank's")
+    if out["logits_rel_rms_err"] > limit:
+        raise AssertionError(f"train_serve: served logits {out['logits_rel_rms_err']} > {limit}")
+    if out["control_logits_rel_rms_err"] <= limit:
+        raise AssertionError("train_serve: the swapped-leaf control passed the logits limit")
+    if delta["decode_graph_replays"] != delta["decode_steps"]:
+        raise AssertionError(f"train_serve: decode steps that were no graph replay: {delta}")
+    if launches != norms_expected:
+        raise AssertionError(f"train_serve: rmsnorm launches {launches} != {norms_expected}")
+    # one copy of the params on the card, no more
+    if restore_peak != param_bytes:
+        raise AssertionError(f"train_serve: restore peak {restore_peak} B for {param_bytes} B")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1462,6 +1692,7 @@ def main() -> int:
     lora_serve = timed_phase("lora_serve", lambda torch, card: phase_lora_serve(torch, card, serve))
     dots = timed_phase("train_dots", lambda torch, card: phase_train_dots(torch, card, train))
     timed_phase("graft_entry", phase_graft_entry)
+    train_serve = timed_phase("train_serve", lambda torch, card: phase_train_serve(torch, card, train))
     emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
@@ -1502,7 +1733,8 @@ def main() -> int:
         # each serving path, its counter set to 0 just before it
         "launches_by_path": {"serve": serve["rmsnorm_launches"],
                              "moe_serve": moe_serve["rmsnorm_launches"],
-                             "lora_serve": lora_serve["rmsnorm_launches"]},
+                             "lora_serve": lora_serve["rmsnorm_launches"],
+                             "train_serve": train_serve["rmsnorm_launches"]},
         "max_abs_err": k["max_abs_err"],
         "ms": decode["kernel_us"] / 1e3,
         "plain_ms": decode["plain_us"] / 1e3,
@@ -1523,7 +1755,9 @@ def main() -> int:
         "launches": train["launches"][key],
         # each training path's timed steps, the counters set to 0 before them
         "launches_by_path": {"train": train["launches"][key], "moe_train": moe_train["launches"][key],
-                             "train_dots": dots["launches"][key]},
+                             "train_dots": dots["launches"][key],
+                             # the trainer's rank process, its own counters
+                             "train_serve": train_serve["launches"][name]},
         "max_abs_err": k["attention"]["max_abs_err"],
         "ms": bench[key]["kernel_us"] / 1e3,
         "plain_ms": bench[key]["plain_us"] / 1e3,

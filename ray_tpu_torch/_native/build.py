@@ -5,7 +5,10 @@ Each ``ray_tpu_torch/ops/csrc/<name>.cu`` compiles on its own into
 PyTorch headers: such a build takes seconds, one that includes them takes
 minutes). ``tag`` hashes the source, the shared headers and the flags, so an
 edited source builds anew and an unchanged one is reused. Several sources
-build in parallel, one nvcc process each, all started together.
+build in parallel, one nvcc process each, all started together. Processes
+that build at once (the ranks of a trainer) take turns on a file lock
+(``flock``, released by the kernel if its holder dies): the first builds,
+the others find its libraries and load them.
 
 Nothing builds at import: ``load`` builds on the first call that needs a
 kernel, ``build`` builds every source up front (for timing the build).
@@ -14,6 +17,7 @@ kernel, ``build`` builds every source up front (for timing the build).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -79,17 +83,21 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, Path]:
     one nvcc per source, all in parallel. Returns name -> library path;
     raises BuildError with nvcc's output if any compile fails."""
     names = list(names) if names is not None else sources()
-    out: dict[str, Path] = {}
-    todo = []
-    for name in names:
-        lib = library_path(name)
-        out[name] = lib
-        if not lib.exists():
-            todo.append((name, lib))
-    if not todo:
+    out = {name: library_path(name) for name in names}
+    if all(lib.exists() for lib in out.values()):
         return out
-    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        # another process may have built them while this one waited
+        _compile([(name, lib) for name, lib in out.items() if not lib.exists()])
+    return out
+
+
+def _compile(todo: list) -> None:
+    if not todo:
+        return
+    nvcc = nvcc_path()
     procs = []
     for name, lib in todo:
         tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
@@ -114,7 +122,6 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, Path]:
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     if failures:
         raise BuildError("\n".join(failures))
-    return out
 
 
 def build_log(name: str) -> str:

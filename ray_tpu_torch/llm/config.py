@@ -85,7 +85,7 @@ class EngineConfig:
 class ModelConfig:
     model_id: str = "tiny"  # "tiny" | "llama2-7b" | "llama3-8b" | path
     tokenizer: str = "byte"  # "byte" | transformers tokenizer path
-    checkpoint_path: Optional[str] = None  # pytree checkpoint (loading: a later slice)
+    checkpoint_path: Optional[str] = None  # params checkpoint (train/checkpoint.py)
     seed: int = 0
     # extra LlamaConfig overrides applied on top of the preset — e.g.
     # {"moe_experts": 8, "moe_top_k": 2} serves a MoE variant (the engine
@@ -130,8 +130,8 @@ class LLMConfig:
     num_replicas: int = 1
     ray_actor_options: Optional[dict] = None
     autoscaling_config: Optional[dict] = None
-    # multi-LoRA: adapter name -> weights ({wq_a, wq_b, wv_a, wv_b}; a
-    # pytree-checkpoint path needs the Train slice's restore_pytree), loaded
+    # multi-LoRA: adapter name -> weights ({wq_a, wq_b, wv_a, wv_b}) or a
+    # checkpoint path of them (train/checkpoint.py), loaded
     # into the engine's stacked adapter slots at replica start; requests
     # select one with model="<served_name>:<adapter>" (reference: the LoRA
     # model-id convention in llm/_internal/serve)

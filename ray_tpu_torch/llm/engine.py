@@ -29,8 +29,12 @@ kernels, and results come back through a non-blocking copy into pinned host
 memory plus a recorded CUDA event (``_Fetch``). The loop reads a result once
 its event has completed, and waits on one only when run-ahead is used up.
 
-Tensor/sequence parallelism and checkpoint loading raise
-``NotImplementedError``: they come with later slices.
+``ModelConfig.checkpoint_path`` names a checkpoint of the params (written
+by the port's ``train.save_state_dict`` or the JAX package's
+``save_pytree``): it is read against a meta template of ``init_params``'
+shapes and copied to the device leaf by leaf, so the device holds one copy
+of the params. Tensor/sequence parallelism raises ``NotImplementedError``:
+it comes with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -59,9 +63,11 @@ from ray_tpu_torch.models.llama import (
     init_kv_cache,
     init_lora_stack,
     init_params,
+    param_template,
     prefill,
 )
 from ray_tpu_torch.ops import add_launch_counts, launch_counts
+from ray_tpu_torch.train.checkpoint import restore_state_dict
 
 logger = logging.getLogger(__name__)
 
@@ -332,8 +338,13 @@ class TorchEngine:
         mc, ec = self.config.model, self.config.engine
         self.model_cfg = resolve_llama_config(mc, ec, min_vocab=self.tokenizer.vocab_size)
         if mc.checkpoint_path:
-            raise NotImplementedError(f"checkpoint loading {_LATER}")
-        self.params = init_params(self.model_cfg, seed=mc.seed, device=self.device)
+            # the JAX engine's restore_pytree (ray_tpu/llm/engine.py:207-208),
+            # checked leaf by leaf against the served config's shapes
+            self.params = restore_state_dict(
+                mc.checkpoint_path, like=param_template(self.model_cfg), device=self.device
+            )
+        else:
+            self.params = init_params(self.model_cfg, seed=mc.seed, device=self.device)
 
     # -- device helpers -----------------------------------------------------
 

@@ -2,18 +2,21 @@
 
 Counterpart of ``ray_tpu/llm/server.py``: the same request and reply
 shapes, hosted on the port's engine. A replica = one engine = one CUDA
-device. LoRA adapters load from in-memory weights; a request picks one
-with ``"_lora"`` and gets an OpenAI-style 404 for an adapter the replica
-does not serve. Loading an adapter from a checkpoint path comes with the
-port's Train slice (``train/checkpoint.py:restore_pytree``).
+device. LoRA adapters load from in-memory weights or from a checkpoint
+path (the port's or the JAX package's format, ``train/checkpoint.py``); a
+request picks one with ``"_lora"`` and gets an OpenAI-style 404 for an
+adapter the replica does not serve.
 """
 
 from __future__ import annotations
 
 import time
 
+import torch
+
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import TorchEngine
+from ray_tpu_torch.train.checkpoint import read_manifest, restore_state_dict, torch_dtype
 
 
 def _sampling(body: dict) -> SamplingParams:
@@ -45,14 +48,21 @@ class LLMServer:
     def load_lora(self, name: str, path_or_weights) -> bool:
         """Load an adapter into this replica's engine stack. Weights are a
         dict {wq_a, wq_b, wv_a, wv_b} of tensors or numpy arrays
-        (``TorchEngine.add_lora``); a checkpoint path is not readable yet."""
+        (``TorchEngine.add_lora``), or a checkpoint path
+        (``ray_tpu/llm/server.py:39-43``), read against the engine's adapter
+        shapes in the dtype it was saved in; ``add_lora`` casts, as the JAX
+        engine does."""
+        weights = path_or_weights
         if isinstance(path_or_weights, str):
-            raise NotImplementedError(
-                "loading a LoRA adapter from a checkpoint path is not ported yet: it needs "
-                "train/checkpoint.py:restore_pytree, which comes with the port's Train slice; "
-                "pass the weights as a dict"
-            )
-        self.engine.add_lora(name, path_or_weights)
+            if self.engine.loras is None:
+                raise ValueError("engine built with max_loras=0")
+            metas = read_manifest(path_or_weights)["leaves"]
+            # a flat dict's leaves are its keys in sorted order
+            like = {k: torch.empty(v.shape[:1] + v.shape[2:], dtype=torch_dtype(m["dtype"]),
+                                   device="meta")
+                    for (k, v), m in zip(sorted(self.engine.loras.items()), metas)}
+            weights = restore_state_dict(path_or_weights, like=like)
+        self.engine.add_lora(name, weights)
         return True
 
     def unload_lora(self, name: str) -> bool:

@@ -181,6 +181,13 @@ def _layer_keys(cfg: LlamaConfig) -> tuple:
     return base + ("w_gate", "w_up", "w_down")
 
 
+def param_template(cfg: LlamaConfig) -> dict[str, torch.Tensor]:
+    """``init_params``' names, shapes and dtype as meta tensors: a template
+    for ``train.restore_state_dict`` that allocates nothing."""
+    return {name: torch.empty(shape, dtype=cfg.dtype, device="meta")
+            for name, shape in sorted(_param_shapes(cfg).items())}
+
+
 def init_params(
     cfg: LlamaConfig, seed: int = 0, device: Union[str, torch.device, None] = None
 ) -> dict[str, torch.Tensor]:
@@ -371,10 +378,12 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None):
     return _project_logits(x, params, cfg)
 
 
-def loss_fn(params, batch, cfg: LlamaConfig):
+def loss_fn(params, batch, cfg: LlamaConfig, denom: Optional[torch.Tensor] = None):
     """Next-token cross-entropy. batch: {'tokens': [B, T+1]} (labels are
     the tokens shifted by one, a 'mask' [B, T+1] likewise) or {'tokens',
-    'labels', 'mask'}. The mean is over the mask sum, clamped at 1."""
+    'labels', 'mask'}. The mean is over the mask sum, clamped at 1; a
+    data-parallel step passes ``denom``, the global batch's clamped mask
+    sum, and gets this rank's masked sum over it."""
     dev = params["embed"].device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     tokens = batch["tokens"]
@@ -388,16 +397,16 @@ def loss_fn(params, batch, cfg: LlamaConfig):
             mask = mask[:, 1:]
     x, aux = forward_hidden(params, tokens, cfg, with_aux=True)
     if cfg.fused_ce:
-        base = fused_cross_entropy(x, _unembed(params, cfg), labels, mask=mask)
+        base = fused_cross_entropy(x, _unembed(params, cfg), labels, mask=mask, denom=denom)
     else:
         logits = _project_logits(x, params, cfg)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, labels[..., None].long())[..., 0]
         if mask is not None:
             mask = mask.to(nll.dtype)
-            base = (nll * mask).sum() / mask.sum().clamp(min=1)
+            base = (nll * mask).sum() / (mask.sum().clamp(min=1) if denom is None else denom)
         else:
-            base = nll.mean()
+            base = nll.mean() if denom is None else nll.sum() / denom
     if cfg.moe_experts:
         return base + cfg.moe_aux_weight * aux
     return base

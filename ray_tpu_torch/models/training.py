@@ -1,10 +1,19 @@
 """Train-step builder: the counterpart of ``ray_tpu/models/training.py``.
 
-One device, no mesh (the sharded data/fsdp/tensor axes come with the
-port's multi-device slice). The step is eager PyTorch: ``loss_fn``'s
-forward (per-layer ``torch.utils.checkpoint`` when ``cfg.remat``),
-``torch.autograd.grad``, then ``default_optimizer``'s update applied to
-the params in place.
+One device per rank, and data parallelism over a torch process group
+(``dp_group``), the counterpart of the JAX step over ``MeshSpec(dp=-1)``;
+the fsdp/tensor axes come with the port's multi-device slice. The step is
+eager PyTorch: ``loss_fn``'s forward (per-layer ``torch.utils.checkpoint``
+when ``cfg.remat``), ``torch.autograd.grad``, then ``default_optimizer``'s
+update applied to the params in place.
+
+Under a group of more than one rank the loss is the global batch's masked
+mean, as XLA computes it over the global batch: the mask sums are
+all-reduced first, each rank divides its local masked sum by that count,
+and the gradients are all-reduced (SUM) before the clip. The clip and
+AdamW then see the same global gradients on every rank, so the params stay
+equal across ranks. (A mean of per-rank means would be wrong when the
+masks differ.)
 
 ``default_optimizer`` mirrors the optax chain the JAX package builds,
 value for value and step for step: ``warmup_cosine_decay_schedule`` ->
@@ -21,6 +30,7 @@ import math
 from typing import Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
@@ -145,15 +155,47 @@ class TrainState:
         self.opt_state = opt_state
         self.step = step
 
+    def state_dict(self) -> dict:
+        """{"params", "opt_state", "step"}: what ``train.save_state_dict``
+        stores and ``from_state_dict`` takes back."""
+        return {"params": self.params, "opt_state": self.opt_state, "step": self.step}
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "TrainState":
+        return cls(d["params"], d["opt_state"], d["step"])
+
+
+def _mask_count(batch, device) -> torch.Tensor:
+    """The count ``loss_fn`` divides by, before its clamp: the mask's sum
+    over the predicted positions, else their number (fp32, 0-d)."""
+    mask = batch.get("mask")
+    if "labels" in batch:
+        n = batch["labels"].shape
+    else:
+        n = (batch["tokens"].shape[0], batch["tokens"].shape[1] - 1)
+        mask = None if mask is None else mask[:, 1:]
+    if mask is None:
+        return torch.tensor(float(n[0] * n[1]), device=device)
+    return torch.as_tensor(mask, device=device).float().sum()
+
 
 def make_train_step(
     cfg: LlamaConfig,
     optimizer=None,
     loss: Optional[Callable] = None,
     device: Union[str, torch.device, None] = None,
+    dp_group: Optional["dist.ProcessGroup"] = None,
 ):
     """Returns (init_fn(seed) -> TrainState, step_fn(state, batch) -> (state,
     metrics)).
+
+    ``dp_group``: the data-parallel process group (each rank passes its own
+    shard of the global batch), or None for one device. With more than one
+    rank the step is the global batch's (module docstring); ``loss`` is
+    then called with ``denom=`` the global count, and ``metrics["loss"]``
+    is the global loss. MoE raises under more than one rank: the Switch aux
+    loss is a product of global routing statistics, which belongs to the
+    multi-device slice.
 
     ``metrics`` holds ``loss`` (0-d tensor), ``grad_norm`` (the global norm
     of the gradients before clipping, 0-d fp32 tensor) and ``step``. The
@@ -165,6 +207,12 @@ def make_train_step(
     where the params are."""
     optimizer = optimizer or default_optimizer()
     loss = loss or loss_fn
+    dp = dp_group is not None and dist.get_world_size(dp_group) > 1
+    if dp and cfg.moe_experts:
+        raise NotImplementedError(
+            "MoE under data parallelism is not ported: the aux loss needs the global "
+            "routing statistics (ray_tpu/parallel/moe.py:_route), a multi-device slice"
+        )
 
     def init_fn(seed: int = 0) -> TrainState:
         params = init_params(cfg, seed, resolve_device(device))
@@ -173,14 +221,24 @@ def make_train_step(
     def step_fn(state: TrainState, batch):
         names = list(state.params)
         leaves = [state.params[k].requires_grad_(True) for k in names]
-        lval = loss(state.params, batch, cfg)
+        if dp:
+            count = _mask_count(batch, leaves[0].device)
+            dist.all_reduce(count, group=dp_group)
+            lval = loss(state.params, batch, cfg, denom=count.clamp(min=1))
+        else:
+            lval = loss(state.params, batch, cfg)
         grads = dict(zip(names, torch.autograd.grad(lval, leaves)))
+        lval = lval.detach()
+        if dp:
+            for g in grads.values():
+                dist.all_reduce(g, group=dp_group)
+            dist.all_reduce(lval, group=dp_group)
         gnorm = global_norm(grads.values())
         updates, state.opt_state = optimizer.update(grads, state.opt_state, state.params,
                                                     g_norm=gnorm)
         apply_updates(state.params, updates)
         state.step += 1
-        return state, {"loss": lval.detach(), "grad_norm": gnorm, "step": state.step}
+        return state, {"loss": lval, "grad_norm": gnorm, "step": state.step}
 
     return init_fn, step_fn
 

@@ -67,12 +67,14 @@ def fused_cross_entropy(
     labels: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     chunk_size: int = 1024,
+    denom: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean next-token NLL without materializing [B, S, V] logits.
 
     x: final hidden states [B, S, E]; unembed: [E, V]; labels: int [B, S];
     mask: optional [B, S] 0/1 weights, the mean is over the mask sum
-    (clamped at 1). chunk_size: tokens a step. Returns a scalar fp32 loss.
+    (clamped at 1), or ``denom`` when given (a data-parallel step's global
+    mask sum). chunk_size: tokens a step. Returns a scalar fp32 loss.
     The last chunk is shorter when B*S is not a multiple of chunk_size (the
     JAX code pads it with masked rows instead: the same sum)."""
     B, S, E = x.shape
@@ -87,4 +89,4 @@ def fused_cross_entropy(
     for start in range(0, n, chunk):
         sl = slice(start, start + chunk)
         total = total + checkpoint(_chunk_nll, xf[sl], w, lf[sl], mf[sl], use_reentrant=False)
-    return total / mf.sum().clamp(min=1.0)
+    return total / (mf.sum().clamp(min=1.0) if denom is None else denom)

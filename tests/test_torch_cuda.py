@@ -703,3 +703,56 @@ def test_moe_and_lora_engines_decode_by_graph_replay_on_card():
         assert stats["decode_graph_replays"] == stats["decode_steps"] > 0
     finally:
         eng.shutdown()
+
+
+# ---- the Train layer on the card ------------------------------------------------
+
+
+def test_torch_trainer_one_nccl_rank_on_card(tmp_path):
+    """TorchTrainer with one GPU rank at a tiny size: the rank's process
+    group is NCCL, each step launches the attention kernels L / L / L (no
+    remat), the final checkpoint restores on the card to the rank's bits,
+    and no rank outlives fit()."""
+    _need_card()
+    import multiprocessing
+
+    from ray_tpu_torch.examples import train_llama_dp as ex
+    from ray_tpu_torch.models.llama import param_template
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    kw = dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=256, dtype=torch.bfloat16,
+              attention="splash")
+    config = {"model": "tiny", "model_kwargs": kw, "steps": 2, "batch": 2, "seq_len": 64}
+    result = TorchTrainer(
+        ex.train_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="nccl", storage_path=str(tmp_path)),
+    ).fit()
+    assert result.error is None, result.error
+    assert not [p for p in multiprocessing.active_children() if "-rank-" in p.name]
+    h = result.metrics_history
+    assert [m["step"] for m in h] == [1, 2] and {m["backend"] for m in h} == {"nccl"}
+    L = 2
+    for m in h:
+        assert (m["launches"]["flash_attention_fwd"], m["launches"]["flash_attention_bwd_dq"],
+                m["launches"]["flash_attention_bwd_dkdv"]) == (L, L, L)
+    params = result.checkpoint.to_state_dict(like=param_template(ex.model_config(config)),
+                                             device="cuda")
+    assert ex.bit_checksums(params) == h[-1]["checksums"]
+
+
+def test_tensor_serializer_on_a_cuda_tensor():
+    """A CUDA tensor is copied to the host; its one array goes out-of-band
+    under pickle protocol 5; bf16 travels as int16 bits."""
+    _need_card()
+    import pickle
+
+    from ray_tpu_torch._private.serialization import deserialize_tensor, serialize_tensor
+
+    t = torch.randn(64, 48, device="cuda").to(torch.bfloat16)[:, ::2]
+    buffers = []
+    blob = pickle.dumps(serialize_tensor(t), protocol=5, buffer_callback=buffers.append)
+    assert len(buffers) == 1
+    back = deserialize_tensor(pickle.loads(blob, buffers=buffers))
+    assert back.device.type == "cpu" and back.dtype == torch.bfloat16
+    assert torch.equal(back, t.cpu())

@@ -27,7 +27,6 @@ from ray_tpu_torch.llm import (
     EngineConfig,
     LLMConfig,
     LLMServer,
-    ModelConfig,
     SamplingParams,
     TorchEngine,
 )
@@ -267,18 +266,13 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    """What the port still lacks: tensor/sequence-parallel serving,
-    checkpoint loading and a LoRA adapter read from a checkpoint path."""
+    """What the port still lacks: tensor/sequence-parallel serving (the
+    multi-device slice). Checkpoint loading and LoRA adapters from a path
+    came with the Train layer (tests/test_torch_checkpoint.py)."""
     small = dict(max_seq_len=32, prefill_buckets=(32,))
     for kw in ({"tensor_parallel_degree": 2}, {"sequence_parallel_degree": 2}):
         with pytest.raises(NotImplementedError, match="tensor/sequence-parallel"):
             TorchEngine(LLMConfig(engine=EngineConfig(**small, **kw)), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint loading"):
-        TorchEngine(LLMConfig(model=ModelConfig(checkpoint_path="ckpt"),
-                              engine=EngineConfig(**small)), device="cpu")
-    cfg = LLMConfig(engine=EngineConfig(max_loras=1, **small), lora_adapters={"a": "ckpt"})
-    with pytest.raises(NotImplementedError, match="checkpoint path"):
-        LLMServer(cfg, device="cpu")
 
 
 # ---- import boundary ---------------------------------------------------------

@@ -258,11 +258,25 @@ def test_server_loads_lists_unloads_and_routes():
         server.engine.shutdown()
 
 
-def test_server_lora_from_a_path_waits_for_checkpoints():
+def test_server_lora_from_a_path_waits_for_checkpoints(tmp_path):
+    """A LoRA adapter given as a checkpoint path (the Train layer's
+    checkpoints): a missing path loads nothing; a saved fp32 adapter loads
+    into the bf16 engine (cast, as the JAX engine casts) and routes as the
+    same weights loaded from memory do."""
+    from ray_tpu_torch.train import save_state_dict
+
     server = LLMServer(_llm_cfg(tcfgmod), device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="restore_pytree"):
-            server.load_lora("a", "/some/checkpoint")
+        with pytest.raises(FileNotFoundError):
+            server.load_lora("a", str(tmp_path / "missing"))
         assert server.list_loras() == []
+        adapter = _random_adapter(server.engine, np.random.default_rng(6))
+        save_state_dict(adapter, str(tmp_path))
+        assert server.load_lora("from_path", str(tmp_path)) is True
+        assert server.load_lora("from_memory", adapter) is True
+        body = {"prompt": "route me", "max_tokens": 6, "ignore_eos": True}
+        got = server.completions({**body, "_lora": "from_path"})["choices"][0]["text"]
+        assert got == server.completions({**body, "_lora": "from_memory"})["choices"][0]["text"]
+        assert got != server.completions(body)["choices"][0]["text"]
     finally:
         server.engine.shutdown()
