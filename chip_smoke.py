@@ -94,6 +94,25 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 LLMServer serves that checkpoint (weights' checksums equal,
                 prefill logits within the bf16 limit, a swapped-leaf copy
                 refused, 16 x 32 greedy tokens, graph replays).
+ 16. parallel — (a) ring attention's per-block arithmetic at full width in
+                one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
+                into 4 sequence shards of 512; for each simulated rank the
+                per-block forward, LSE merge and backward that
+                ring_attention runs between transfers (10 forward, 10 dQ
+                and 10 dK/dV launches with causal block skipping), held to
+                one whole-sequence call of the kernels within the attention
+                limits, a control with one block at the wrong global offset
+                that must fail them, and the blocks' summed time beside the
+                whole call's; (b) graft_entry.dryrun_multichip on one NCCL
+                rank a card at the bench widths (16 layers; the pp and MoE
+                meshes 4 layers, 4 experts; 4 x 2048 tokens a data shard):
+                one step on every mesh of the JAX sweep, each mesh's loss
+                and grad norm within the train numerics limit of the
+                unsharded make_train_step on the same seed and batch, and a
+                control on the first mesh (unembed's gradient counted twice
+                in the backward: the loss stays within the limit, the grad
+                norm must not), step ms per mesh, the flash launches
+                counted in the rank.
 Then the kernels summary line, the nvidia-smi line, and, last,
 {"ok": true, "device": {...}}.
 
@@ -1447,6 +1466,152 @@ def _swapped_copy(src: str, dst: str, a: str, b: str) -> None:
         json.dump(manifest, f)
 
 
+def _ring_blocks(torch, q, k, v, do, P: int, wrong_offset: bool = False):
+    """Ring attention's per-block steps for each of P simulated ranks on one
+    card, the functions ``ring_attention`` runs between its transfers:
+    (o, lse, dq, dk, dv) of the whole sequence. ``wrong_offset``: the last
+    rank's own block is read as an earlier rank's (no causal mask)."""
+    from ray_tpu_torch.parallel.ring_attention import (
+        block_backward, block_forward, merge_blocks, ring_steps)
+
+    t = q.shape[1] // P
+    scale = q.shape[-1] ** -0.5
+
+    def sl(x, i):
+        return x[:, i * t:(i + 1) * t]
+
+    def steps(i):
+        for src, mode in ring_steps(i, P, True):
+            if mode is not None:
+                yield src, (False if wrong_offset and i == P - 1 and src == i else mode)
+
+    outs, lses = [], []
+    for i in range(P):
+        o_acc = lse = None
+        for src, mode in steps(i):
+            o_acc, lse = merge_blocks(o_acc, lse, *block_forward(
+                sl(q, i), sl(k, src), sl(v, src), mode, scale))
+        outs.append(o_acc.to(q.dtype))
+        lses.append(lse)
+    dq = [torch.zeros(sl(q, 0).shape, dtype=torch.float32, device=q.device) for _ in range(P)]
+    dk = [torch.zeros(sl(k, 0).shape, dtype=torch.float32, device=q.device) for _ in range(P)]
+    dv = [torch.zeros_like(x) for x in dk]
+    for i in range(P):
+        for src, mode in steps(i):
+            a, b, c = block_backward(sl(q, i), sl(k, src), sl(v, src), outs[i], lses[i],
+                                     sl(do, i), mode, scale)
+            dq[i] += a
+            dk[src] += b
+            dv[src] += c
+    return (torch.cat(outs, 1), torch.cat(lses, -1), torch.cat(dq, 1).to(q.dtype),
+            torch.cat(dk, 1).to(k.dtype), torch.cat(dv, 1).to(v.dtype))
+
+
+def phase_parallel(torch, card: str) -> dict:
+    """(a) The ring's per-block arithmetic at the bench attention shape, in
+    one process, against one whole-sequence call of the kernels (the
+    attention limits of ops/flash_attention.py, unchanged), with a control
+    at the wrong global offset; (b) the JAX sweep's meshes on one NCCL rank
+    a card at the bench widths, each held to the unsharded step within the
+    train numerics phase's loss limit (1e-3 relative), loss and grad norm,
+    with a control whose backward counts one leaf's gradient twice and
+    must fail the grad norm's limit."""
+    from ray_tpu_torch.graft_entry import dryrun_multichip
+    from ray_tpu_torch.models.training import H100_BF16_DENSE_FLOPS
+    from ray_tpu_torch.ops.flash_attention import (
+        MAX_ABS_LIMIT, REL_RMS_LIMIT, agreement, flash_attention, flash_attention_bwd_kernel,
+        flash_attention_fwd_kernel, reset_launches)
+    from ray_tpu_torch.tools.decode_profile import graph_us
+
+    limit = 1e-3  # the train numerics phase's loss limit
+    B, T, H, D, P = 4, 2048, 16, 128, 4
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    reset_launches()
+    ring = _ring_blocks(torch, q, k, v, do, P)
+    torch.cuda.synchronize()
+    f = flash_attention
+    launches = {"fwd": f.launches_fwd, "bwd_dq": f.launches_bwd_dq,
+                "bwd_dkdv": f.launches_bwd_dkdv}
+    blocks = P * (P + 1) // 2
+    o, lse = flash_attention_fwd_kernel(q, k, v)
+    whole = (o, lse) + flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    names = ("o", "lse", "dq", "dk", "dv")
+    checks = {n: agreement(a, b) for n, a, b in zip(names, ring, whole)}
+    control = {n: agreement(a, b) for n, a, b in
+               zip(names, _ring_blocks(torch, q, k, v, do, P, wrong_offset=True), whole)}
+    ring_us = graph_us(lambda: _ring_blocks(torch, q, k, v, do, P), 2, 5)
+
+    def whole_call():
+        o, lse = flash_attention_fwd_kernel(q, k, v)
+        flash_attention_bwd_kernel(q, k, v, o, lse, do)
+
+    whole_us = graph_us(whole_call, 2, 5)
+    npairs = T * (T + 1) // 2
+    ring_out = {
+        "shape_bthd": [B, T, H, D], "sp": P, "launches": launches,
+        "launches_expected": {key: blocks for key in launches},
+        **{f"{n}_{m}": c[m] for n, c in checks.items() for m in ("max_abs_err", "rel_rms_err")},
+        "control_rel_rms_err": {n: c["rel_rms_err"] for n, c in control.items()},
+        "limits": {"rel_rms_err": REL_RMS_LIMIT, "max_abs_err_of_max_ref": MAX_ABS_LIMIT},
+        "blocks_fwd_bwd_us": ring_us, "whole_fwd_bwd_us": whole_us,
+        "blocks_over_whole": ring_us / whole_us,
+        "fwd_bwd_bound_us": 14 * B * H * D * npairs / H100_BF16_DENSE_FLOPS * 1e6,
+    }
+    del q, k, v, do, o, lse, whole, ring
+    torch.cuda.empty_cache()
+
+    n = torch.cuda.device_count()
+    recs = dryrun_multichip(n, widths="bench", init="conditioned", timed_steps=3, reference=True,
+                            control_leaf="unembed", timeout_s=600)
+    meshes = []
+    for r in recs:
+        row = {k: r[k] for k in ("label", "loss", "grad_norm", "ref_loss", "ref_grad_norm",
+                                 "first_step_ms", "step_ms", "tokens", "launches",
+                                 "unsharded_function")}
+        row["mesh"] = {a: s for a, s in r["mesh"].items() if s > 1}
+        row["loss_rel_err"] = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+        row["grad_norm_rel_err"] = abs(r["grad_norm"] - r["ref_grad_norm"]) / r["ref_grad_norm"]
+        row["tokens_per_s"] = r["tokens"] / r["step_ms"] * 1e3
+        if "control" in r:
+            c = r["control"]
+            row["control"] = {
+                **c, "loss_rel_err": abs(c["loss"] - r["ref_loss"]) / abs(r["ref_loss"]),
+                "grad_norm_rel_err": abs(c["grad_norm"] - r["ref_grad_norm"]) / r["ref_grad_norm"]}
+        meshes.append(row)
+    parallel_launches = {key: sum(m["launches"][key] for m in meshes) for key in launches}
+    out = {"phase": "parallel", "card": card, "ring": ring_out, "ranks": n, "limit": limit,
+           "widths": "bench.py train config (16 layers; pp and MoE meshes 4 layers, 4 experts)",
+           "meshes": meshes, "launches": parallel_launches}
+    emit(out)
+    bad = [n for n, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"parallel: ring blocks outside the attention limits: {bad}")
+    if all(c["ok"] for c in control.values()):
+        raise AssertionError("parallel: the wrong-offset control passed the attention limits")
+    if launches != ring_out["launches_expected"]:
+        raise AssertionError(f"parallel: ring launches {launches} != {blocks} each")
+    # the control: the first mesh's step with unembed's gradient counted
+    # twice has the true loss, and only the grad norm can catch it
+    control = meshes[0]["control"]
+    if control["loss_rel_err"] > limit:
+        raise AssertionError(f"parallel: the control's forward changed: {control}")
+    if control["grad_norm_rel_err"] <= limit:
+        raise AssertionError(f"parallel: the doubled-gradient control passed the limit: {control}")
+    for m in meshes:
+        # on one card every mesh computes the unsharded function; on more,
+        # MoE under ep or pp routes per shard, as the JAX package does
+        held = n == 1 or m["unsharded_function"]
+        if held and (m["loss_rel_err"] > limit or m["grad_norm_rel_err"] > limit):
+            raise AssertionError(f"parallel: {m['label']} outside the limit: {m}")
+        if n == 1:
+            L = 4 if m["label"].startswith("pp2") or "moe" in m["label"] else 16
+            if m["launches"] != {"fwd": 2 * L, "bwd_dq": L, "bwd_dkdv": L}:
+                raise AssertionError(f"parallel: {m['label']} launches {m['launches']} (L {L})")
+    return out
+
+
 def phase_train_serve(torch, card: str, train: dict) -> dict:
     """Train -> checkpoint -> serve at the bench width, through the entry
     points a user calls.
@@ -1693,6 +1858,8 @@ def main() -> int:
     dots = timed_phase("train_dots", lambda torch, card: phase_train_dots(torch, card, train))
     timed_phase("graft_entry", phase_graft_entry)
     train_serve = timed_phase("train_serve", lambda torch, card: phase_train_serve(torch, card, train))
+    gc_collect(torch)
+    parallel = timed_phase("parallel", phase_parallel)
     emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
@@ -1757,7 +1924,9 @@ def main() -> int:
         "launches_by_path": {"train": train["launches"][key], "moe_train": moe_train["launches"][key],
                              "train_dots": dots["launches"][key],
                              # the trainer's rank process, its own counters
-                             "train_serve": train_serve["launches"][name]},
+                             "train_serve": train_serve["launches"][name],
+                             # the sweep's first step on each mesh, counted in the rank
+                             "parallel": parallel["launches"][key]},
         "max_abs_err": k["attention"]["max_abs_err"],
         "ms": bench[key]["kernel_us"] / 1e3,
         "plain_ms": bench[key]["plain_us"] / 1e3,

@@ -6,8 +6,11 @@
 
 ``train_loop(config)`` builds ``make_train_step(cfg,
 dp_group=torch.distributed.group.WORLD)`` on the rank's device, takes the
-batch seed from rank 0 (``broadcast_from_rank_zero``), draws each rank's
-batch of each step from (seed, rank, step), and reports ``{"loss",
+batch seed from rank 0 (``broadcast_from_rank_zero``), reads each step's
+batch from the rank's ``"train"`` dataset shard (``get_dataset_shard``)
+through ``data.iter_device_batches`` when the trainer was given one
+(rows {"tokens": [seq_len + 1]}), else draws it from (seed, rank, step),
+and reports ``{"loss",
 "step"}`` (with the step's wall ms, grad norm and kernel launch counts)
 after every step. The last step reports the params as a checkpoint
 (``Checkpoint.from_state_dict``) with each tensor's bit checksum and
@@ -37,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 import ray_tpu_torch.train as train
+from ray_tpu_torch.data import iter_device_batches
 from ray_tpu_torch.models.llama import LlamaConfig, init_kv_cache, param_template, prefill
 from ray_tpu_torch.models.training import TrainState, default_optimizer, make_train_step
 from ray_tpu_torch.ops import launch_counts
@@ -139,8 +143,14 @@ def train_loop(config: dict) -> None:
                     "checkpoint_read_s": seconds, "checkpoint_bytes": _nbytes(state.state_dict())}
     else:
         state = init_fn(seed)
+    shard = train.get_dataset_shard("train")
+    batches = (None if shard is None else
+               iter_device_batches(shard, batch_size=config["batch"], device=device))
     for _ in range(state.step, config["steps"]):
-        batch = _batch(cfg, config, seed, rank, state.step, device)
+        if batches is None:
+            batch = _batch(cfg, config, seed, rank, state.step, device)
+        else:
+            batch = next(batches)
         before = launch_counts()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)

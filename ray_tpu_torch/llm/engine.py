@@ -34,7 +34,7 @@ by the port's ``train.save_state_dict`` or the JAX package's
 ``save_pytree``): it is read against a meta template of ``init_params``'
 shapes and copied to the device leaf by leaf, so the device holds one copy
 of the params. Tensor/sequence parallelism raises ``NotImplementedError``:
-it comes with the multi-device slice.
+it needs one process a card, and comes with the gang-serving slice.
 """
 
 from __future__ import annotations
@@ -71,7 +71,11 @@ from ray_tpu_torch.train.checkpoint import restore_state_dict
 
 logger = logging.getLogger(__name__)
 
-_LATER = "is not ported yet (a later slice of the port)"
+# JAX serves tp/sp as one process over the host's devices
+# (ray_tpu/llm/engine.py:197-204); the port runs one process a card, so
+# it comes with the gang-serving slice (llm/spmd.py, llm/gang.py)
+_GANG = ("is not ported yet: it needs one process a card, the gang-serving slice of the port "
+         "(llm/spmd.py, llm/gang.py)")
 
 
 @dataclasses.dataclass
@@ -238,7 +242,7 @@ class TorchEngine:
         self.config = config
         ec = config.engine
         if ec.tensor_parallel_degree > 1 or ec.sequence_parallel_degree > 1:
-            raise NotImplementedError(f"tensor/sequence-parallel serving {_LATER}")
+            raise NotImplementedError(f"tensor/sequence-parallel serving {_GANG}")
         self.tokenizer = get_tokenizer(config.model.tokenizer)
         self._build_model()
         # multi-LoRA: stacked adapters (slot 0 = base, all zero) and the

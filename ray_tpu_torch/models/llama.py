@@ -13,9 +13,17 @@ CUDA flash-attention kernels for ``attention="flash"``/``"splash"`` on the
 card; per-layer remat, "full" or "dots"), the routed MoE FFN
 (``parallel/moe.py``) in training and, dropless, in serving, and the decode
 path (``init_kv_cache``, ``prefill``, ``decode_step``) with stacked
-multi-LoRA adapters (``init_lora_stack``). The mesh-sharded paths
-(ring/Ulysses attention, pipeline stages, expert parallelism) come with the
-multi-device slice.
+multi-LoRA adapters (``init_lora_stack``).
+
+On a mesh (``parallel/mesh.py``) each rank runs the same functions on its
+shards, with explicit collectives where the JAX package has GSPMD insert
+them (``_Plan``): tensor parallelism Megatron style (q/k/v/gate/up by
+columns, wo/w_down by rows and an all-reduce, the embedding, unembedding
+and cross-entropy vocab-parallel), fsdp params all-gathered before use
+(their gradients reduce-scattered), ring or Ulysses attention over ``sp``
+with global RoPE positions, the MoE FFN expert-parallel over ``ep``
+(``moe.moe_layer``) or globally routed over a sharded batch at ep = 1, and
+the layer stack as a GPipe pipeline over ``pp``.
 """
 
 from __future__ import annotations
@@ -32,11 +40,14 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy, matmul_fp32_out
+from ray_tpu_torch.ops.cross_entropy import fused_cross_entropy, fused_nll_sum, matmul_fp32_out
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.rmsnorm import add_rmsnorm
+from ray_tpu_torch.parallel import mesh as pmesh
 from ray_tpu_torch.parallel import moe
-from ray_tpu_torch.parallel.ring_attention import dense_attention
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
+from ray_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
+from ray_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +67,10 @@ class LlamaConfig:
     tie_embeddings: bool = False
     # >0: every layer's FFN is a top-k routed expert bank (parallel/moe.py)
     moe_experts: int = 0
-    # 'full' | 'flash' | 'splash' | 'ring' | 'ulysses': flash and splash run
-    # the CUDA flash-attention kernels on the card; the rest (and flash/
-    # splash on the CPU) run dense_attention, as the JAX package does off
-    # the TPU and without an sp mesh axis
+    # 'full' | 'flash' | 'splash' | 'ring' | 'ulysses': all but 'full' run
+    # the CUDA flash-attention kernels on the card (ring and ulysses per
+    # rank over an sp mesh axis); 'full', and all on the CPU, run
+    # dense_attention, as the JAX package does off the TPU
     attention: str = "full"
     # fused blockwise cross-entropy in the train loss (ops.cross_entropy)
     fused_ce: bool = True
@@ -71,8 +82,7 @@ class LlamaConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
-    # the JAX config's pipeline field, read by the multi-device slice; here
-    # so the JAX package's presets and ModelConfig.model_kwargs resolve
+    # microbatches of the GPipe schedule when the mesh has pp > 1; 0 = 2 * pp
     pp_microbatches: int = 0
 
     @property
@@ -181,6 +191,45 @@ def _layer_keys(cfg: LlamaConfig) -> tuple:
     return base + ("w_gate", "w_up", "w_down")
 
 
+# Logical dims of each param (``ray_tpu/models/llama.py:_PARAM_DIMS``,
+# :199-212), except that the layer stacks' leading dim is named "stage"
+# (rule: pp) where the JAX table has None: the JAX pipeline constrains that
+# dim to pp at its entry (``gpipe_spmd``'s ``cst``), and here each pp rank
+# holds only its stage's layers.
+_PARAM_DIMS = {
+    "embed": ("vocab", "embed"),
+    "unembed": ("embed", "vocab"),
+    "final_norm": ("norm",),
+    "wq": ("stage", "embed", "heads", "head_dim"),
+    "wk": ("stage", "embed", "kv_heads", "head_dim"),
+    "wv": ("stage", "embed", "kv_heads", "head_dim"),
+    "wo": ("stage", "heads", "head_dim", "embed"),
+    "w_gate": ("stage", "embed", "mlp"),
+    "w_up": ("stage", "embed", "mlp"),
+    "w_down": ("stage", "mlp", "embed"),
+    "attn_norm": ("stage", "norm"),
+    "mlp_norm": ("stage", "norm"),
+    "moe_router": ("stage", "embed", None),
+    "moe_w_gate": ("stage", "expert", "embed", "mlp"),
+    "moe_w_up": ("stage", "expert", "embed", "mlp"),
+    "moe_w_down": ("stage", "expert", "mlp", "embed"),
+}
+
+
+def param_specs(cfg: LlamaConfig, mesh) -> dict[str, tuple]:
+    """Each param's PartitionSpec on ``mesh`` (mesh axes per dim; an axis
+    that does not divide a dim leaves it whole)."""
+    return {k: pmesh.logical_pspec(mesh, *_PARAM_DIMS[k], shape=s)
+            for k, s in _param_shapes(cfg).items()}
+
+
+def gather_params(cfg: LlamaConfig, mesh, params: dict) -> dict[str, torch.Tensor]:
+    """The whole params from every rank's shards (a collective: every rank
+    calls it)."""
+    specs = param_specs(cfg, mesh)
+    return {k: pmesh.gather_leaf(mesh, params[k], specs[k]) for k in sorted(params)}
+
+
 def param_template(cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     """``init_params``' names, shapes and dtype as meta tensors: a template
     for ``train.restore_state_dict`` that allocates nothing."""
@@ -189,24 +238,33 @@ def param_template(cfg: LlamaConfig) -> dict[str, torch.Tensor]:
 
 
 def init_params(
-    cfg: LlamaConfig, seed: int = 0, device: Union[str, torch.device, None] = None
+    cfg: LlamaConfig, seed: int = 0, device: Union[str, torch.device, None] = None,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """Norms are ones; every other weight is N(0, 1) * fan_in^-1/2 in
     ``cfg.dtype``, as in the JAX package (the random bits differ), drawn
     from a ``torch.Generator`` on ``device`` seeded with ``seed``. Each
     tensor is drawn on ``device`` directly in ``cfg.dtype``: a 3B model
     takes no fp32 detour through host memory. ``device`` is CUDA unless
-    the caller names another (``resolve_device``)."""
+    the caller names another (``resolve_device``).
+
+    With a ``mesh`` each rank gets its shard (``param_specs``) holding
+    exactly the numbers of the unsharded init with the same seed: each
+    whole leaf is drawn on the device, cut, and freed, one at a time."""
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
+    specs = None if mesh is None else param_specs(cfg, mesh)
     params = {}
     for name, shape in sorted(_param_shapes(cfg).items()):
         if "norm" in name:
-            params[name] = torch.ones(shape, dtype=cfg.dtype, device=device)
+            t = torch.ones(shape, dtype=cfg.dtype, device=device)
         else:
             fan_in = shape[-2] if len(shape) > 1 else shape[0]
             t = torch.empty(shape, dtype=cfg.dtype, device=device)
-            params[name] = t.normal_(0.0, fan_in**-0.5, generator=generator)
+            t.normal_(0.0, fan_in**-0.5, generator=generator)
+        if specs is not None:
+            t = t[pmesh.local_slice(mesh, specs[name], shape)].clone()
+        params[name] = t
     return params
 
 
@@ -248,48 +306,152 @@ def _attention(q, k, v, cfg: LlamaConfig):
 
     The JAX package's dispatch without a mesh: "flash" and "splash" run the
     flash-attention kernels on the card (JAX: its Pallas kernels on the
-    TPU); everything else, and flash/splash on the CPU, runs the GQA-native
-    dense_attention (JAX: off the TPU, and ring/ulysses when sp = 1). The
-    kernels read kv head h // G directly, so K/V are never repeated."""
-    if cfg.attention in ("flash", "splash") and q.device.type == "cuda":
+    TPU), and so do "ring" and "ulysses" on one sequence shard (JAX: dense
+    attention there, the same function); "full", and every choice on the
+    CPU, runs the GQA-native dense_attention. The kernels read kv head
+    h // G directly, so K/V are never repeated."""
+    if cfg.attention != "full" and q.device.type == "cuda":
         return flash_attention(q, k, v, causal=True)
     return dense_attention(q, k, v, causal=True)
 
 
-def _layer(layer_params, x, positions, cfg: LlamaConfig, tables=None):
+class _Plan:
+    """How this rank runs the model on ``mesh``: each param's PartitionSpec
+    and the collectives that follow from it.
+
+    - fsdp: a leaf sharded along "embed" is all-gathered over fsdp where it
+      is used (``full``), inside the layer (and again when remat re-runs it);
+      the gather's backward reduce-scatters its gradient.
+    - tp: wq/wk/wv/w_gate/w_up hold this rank's columns (heads, kv heads,
+      mlp), wo/w_down its rows, and their partial outputs are all-reduced
+      (``tp_sum``); a dim that tp does not divide stays whole and its
+      product is computed on every tp rank. The embedding, unembedding and
+      cross-entropy are vocab-parallel.
+    - sp: this rank's sequence shard, RoPE at global positions, ring (or
+      Ulysses) attention.
+    - ep / pp: ``moe.moe_layer`` over ep; a GPipe pipeline over pp.
+    Every collective's backward is its transpose, so each rank's share of
+    the loss (``loss_fn``) back-propagates to its share of each gradient."""
+
+    def __init__(self, cfg: LlamaConfig, mesh):
+        self.mesh = mesh
+        self.sizes = pmesh.mesh_sizes(mesh)
+        if self.sizes["ep"] > 1 and self.sizes["sp"] > 1 and cfg.moe_experts:
+            raise NotImplementedError(
+                "MoE with ep > 1 and sp > 1: the JAX package routes flat token chunks over "
+                "(dp, fsdp, sp) there, not this rank's sequence shard")
+        self.specs = param_specs(cfg, mesh)
+        self.tp = pmesh.axis_group(mesh, "tp")
+        self.tp_rank = mesh.get_local_rank("tp")
+        self.sp_rank = mesh.get_local_rank("sp")
+        # a layer leaf's spec without its leading stage dim
+        self._layer_spec = {k: (v[1:] if _PARAM_DIMS[k][0] == "stage" else v)
+                            for k, v in self.specs.items()}
+
+    def full(self, name: str, w: torch.Tensor, axes=("fsdp",)) -> torch.Tensor:
+        """``w`` (a leaf, or one layer of a stack) all-gathered along each
+        dim sharded over one of ``axes``."""
+        for dim, entry in enumerate(self._layer_spec[name] if w.dim() < len(self.specs[name])
+                                    else self.specs[name]):
+            for axis in pmesh.spec_axes(entry):
+                if axis in axes:
+                    w = pmesh.all_gather(w, pmesh.axis_group(self.mesh, axis), dim)
+        return w
+
+    def sharded(self, name: str, logical: str) -> bool:
+        """Whether ``name``'s ``logical`` dim is split over tp."""
+        return "tp" in pmesh.spec_axes(self.specs[name][_PARAM_DIMS[name].index(logical)])
+
+    def tp_sum(self, y: torch.Tensor, name: str, logical: str) -> torch.Tensor:
+        return pmesh.all_reduce(y, self.tp) if self.sharded(name, logical) else y
+
+    def local_kv(self, k, v, n_heads: int, cfg: LlamaConfig):
+        """The kv heads this rank's q heads read: all of k/v when the kv
+        heads are split over tp with the heads (or nothing is split), else
+        the slice (or, when a q head group straddles ranks, the per-head
+        selection) of the whole k/v."""
+        if k.shape[2] * (cfg.n_heads // cfg.n_kv_heads) == n_heads:
+            return k, v
+        G = cfg.n_heads // cfg.n_kv_heads
+        first = self.tp_rank * n_heads
+        if n_heads % G == 0:
+            sl = slice(first // G, (first + n_heads) // G)
+            return k[:, :, sl], v[:, :, sl]
+        idx = (torch.arange(first, first + n_heads, device=k.device) // G)
+        return k.index_select(2, idx), v.index_select(2, idx)
+
+    def attention(self, q, k, v, cfg: LlamaConfig):
+        sp = self.sizes["sp"]
+        if sp > 1 and cfg.attention == "ulysses":
+            if k.shape[2] % sp:  # the JAX package repeats kv heads here (:316)
+                G = q.shape[2] // k.shape[2]
+                k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+            return ulysses_attention(q, k, v, self.mesh)
+        if sp > 1:
+            # ring for "ring"; for any other choice too: the JAX package
+            # computes the same function as dense attention over the sharded
+            # sequence
+            return ring_attention(q, k, v, self.mesh)
+        return _attention(q, k, v, cfg)
+
+
+def _layer(layer_params, x, positions, cfg: LlamaConfig, tables=None, plan=None):
     """One transformer block. Returns (x, aux): aux is the MoE
-    load-balancing loss, 0.0 for dense layers."""
+    load-balancing loss, 0.0 for dense layers. With a ``plan`` the weights
+    are this rank's shards (``_Plan``)."""
     p = layer_params
     B, T, e = x.shape
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    D = cfg.head_dim
+    w = (lambda n: p[n]) if plan is None else (lambda n: plan.full(n, p[n]))
     h = _rmsnorm(x, p["attn_norm"], cfg.rms_eps, cfg.fused_rmsnorm)
-    q = (h @ p["wq"].reshape(e, H * D)).view(B, T, H, D)
-    k = (h @ p["wk"].reshape(e, KV * D)).view(B, T, KV, D)
-    v = (h @ p["wv"].reshape(e, KV * D)).view(B, T, KV, D)
+    wq, wk, wv = w("wq"), w("wk"), w("wv")
+    H, KV = wq.shape[1], wk.shape[1]  # this rank's heads
+    q = (h @ wq.reshape(e, H * D)).view(B, T, H, D)
+    k = (h @ wk.reshape(e, KV * D)).view(B, T, KV, D)
+    v = (h @ wv.reshape(e, KV * D)).view(B, T, KV, D)
     q = _rope(q, positions, cfg.rope_theta, tables)
     k = _rope(k, positions, cfg.rope_theta, tables)
-    attn = _attention(q, k, v, cfg)
-    x = x + attn.reshape(B, T, H * D) @ p["wo"].reshape(H * D, e)
+    if plan is None:
+        attn = _attention(q, k, v, cfg)
+    else:
+        attn = plan.attention(q, *plan.local_kv(k, v, H, cfg), cfg)
+    o = attn.reshape(B, T, H * D) @ w("wo").reshape(H * D, e)
+    x = x + (o if plan is None else plan.tp_sum(o, "wo", "heads"))
 
     h = _rmsnorm(x, p["mlp_norm"], cfg.rms_eps, cfg.fused_rmsnorm)
     if cfg.moe_experts:
-        y, aux = _moe_ffn(p, h, cfg)
+        y, aux = _moe_ffn(p, h, cfg, plan)
         return x + y, aux
-    ff = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
-    x = x + ff @ p["w_down"]
+    ff = F.silu(h @ w("w_gate")) * (h @ w("w_up"))
+    y = ff @ w("w_down")
+    x = x + (y if plan is None else plan.tp_sum(y, "w_down", "mlp"))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _moe_ffn(p, h, cfg: LlamaConfig):
-    """Routed expert FFN of one layer, with capacity (``moe.moe_dense``).
-    h: [B, T, e] -> ([B, T, e], aux)."""
+def _moe_ffn(p, h, cfg: LlamaConfig, plan=None):
+    """Routed expert FFN of one layer, with capacity. h: [B, T, e] ->
+    ([B, T, e], aux). On a mesh: ``moe.moe_layer`` when ep > 1 (routing
+    local to the token shard, the JAX package's ``moe_layer``), else
+    ``moe.moe_dense`` routed over the global batch (the JAX package's
+    ``moe_dense`` under GSPMD); the expert weights whole along embed and
+    mlp (gathered over fsdp and tp, as the JAX shard_map's in_specs have
+    them)."""
     B, T, e = h.shape
-    bank = {"router": p["moe_router"], "w_gate": p["moe_w_gate"], "w_up": p["moe_w_up"],
-            "w_down": p["moe_w_down"]}
-    y, aux = moe.moe_dense(
-        bank, h.reshape(B * T, e), num_experts=cfg.moe_experts,
-        top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
-    )
+    keys = {"router": "moe_router", "w_gate": "moe_w_gate", "w_up": "moe_w_up",
+            "w_down": "moe_w_down"}
+    if plan is None:
+        bank = {k: p[n] for k, n in keys.items()}
+    else:
+        bank = {k: plan.full(n, p[n], axes=("fsdp", "tp")) for k, n in keys.items()}
+    kw = dict(num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+              capacity_factor=cfg.moe_capacity_factor)
+    tokens = h.reshape(B * T, e)
+    if plan is not None and plan.sizes["ep"] > 1:
+        y, aux = moe.moe_layer(bank, tokens, plan.mesh, tokens_axis_names=("dp", "fsdp", "sp"),
+                               **kw)
+    else:
+        y, aux = moe.moe_dense(bank, tokens, mesh=None if plan is None else plan.mesh,
+                               row_len=T, **kw)
     return y.view(B, T, e).to(h.dtype), aux
 
 
@@ -313,10 +475,21 @@ def _remat_context():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def _embed_lookup(table, tokens, cfg: LlamaConfig):
-    """Token embedding: the unsharded row gather (the one-hot matmul of the
-    JAX package's sharded mesh has no counterpart without a mesh)."""
-    return F.embedding(tokens.long(), table).to(cfg.dtype)
+def _embed_lookup(table, tokens, cfg: LlamaConfig, plan=None):
+    """Token embedding: the row gather (the JAX package's one-hot matmul on
+    a sharded mesh is the same function). With a plan whose embed is split
+    over tp by vocab, each rank gathers the rows it holds (zero for the
+    rest) and the partial embeddings are all-reduced over tp."""
+    if plan is None:
+        return F.embedding(tokens.long(), table).to(cfg.dtype)
+    table = plan.full("embed", table)
+    if not plan.sharded("embed", "vocab"):
+        return F.embedding(tokens.long(), table).to(cfg.dtype)
+    n = table.shape[0]
+    local = tokens.long() - plan.tp_rank * n
+    inside = (local >= 0) & (local < n)
+    x = F.embedding(local.clamp(0, n - 1), table) * inside[..., None].to(table.dtype)
+    return pmesh.all_reduce(x, plan.tp).to(cfg.dtype)
 
 
 def _layer_params(params, cfg: LlamaConfig) -> list[dict]:
@@ -328,7 +501,24 @@ def _layer_params(params, cfg: LlamaConfig) -> list[dict]:
     return [dict(zip(keys, vals)) for vals in zip(*(params[k].unbind(0) for k in keys))]
 
 
-def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None, with_aux: bool = False):
+def _run_layers(params, x, positions, cfg: LlamaConfig, tables, plan=None):
+    """The layer stack in ``params`` (all L, or one pipeline stage's):
+    (x, summed aux)."""
+    remat_kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        remat_kw["context_fn"] = _remat_context
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _layer_params(params, cfg):
+        if cfg.remat:
+            x, a = checkpoint(_layer, lp, x, positions, cfg, tables, plan, **remat_kw)
+        else:
+            x, a = _layer(lp, x, positions, cfg, tables, plan)
+        aux = aux + a
+    return x, aux
+
+
+def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None, with_aux: bool = False,
+                   mesh=None):
     """tokens: [B, T] int -> final hidden states [B, T, d_model].
 
     ``with_aux=True`` returns (hidden, aux), aux the summed MoE
@@ -338,27 +528,61 @@ def forward_hidden(params, tokens, cfg: LlamaConfig, positions=None, with_aux: b
     recomputed in the backward pass, the counterpart of the JAX package's
     per-layer ``jax.checkpoint``. ``remat_policy="dots"`` keeps the matmul
     outputs and recomputes the rest (``_remat_context``); any other policy
-    recomputes everything, as in the JAX package."""
-    remat_kw = {"use_reentrant": False}
-    if cfg.remat_policy == "dots":
-        remat_kw["context_fn"] = _remat_context
+    recomputes everything, as in the JAX package.
+
+    With a ``mesh`` (``parallel/mesh.py``) every rank of it calls this on
+    its shards: ``params`` from ``init_params(mesh=)`` or
+    ``parallel.mesh.shard_params``, ``tokens`` its [B / (dp fsdp), T / sp]
+    shard; positions default to the shard's global ones. With pp > 1 the
+    layers run as a GPipe pipeline of ``cfg.pp_microbatches`` (default
+    2 pp) microbatches of the rank's rows (the JAX package's
+    ``_pipeline_hidden``), the aux is the mean over them, and the hidden
+    states come back on every pp rank."""
+    plan = None if mesh is None else _Plan(cfg, mesh)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=dev).expand(tokens.shape)
+        T = tokens.shape[1]
+        first = 0 if plan is None else plan.sp_rank * T
+        positions = torch.arange(first, first + T, device=dev).expand(tokens.shape)
+    elif plan is not None and plan.sizes["pp"] > 1:
+        # the pipeline's microbatches take the default positions
+        raise NotImplementedError("pp > 1 with custom positions is not supported")
     else:
         positions = torch.as_tensor(positions, device=dev)
-    x = _embed_lookup(params["embed"], tokens, cfg)
-    tables = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for lp in _layer_params(params, cfg):
-        if cfg.remat:
-            x, a = checkpoint(_layer, lp, x, positions, cfg, tables, **remat_kw)
-        else:
-            x, a = _layer(lp, x, positions, cfg, tables)
-        aux = aux + a
+    x = _embed_lookup(params["embed"], tokens, cfg, plan)
+    stack = {k: params[k] for k in _layer_keys(cfg)}
+    if plan is not None and plan.sizes["pp"] > 1:
+        x, aux = _pipeline_hidden(stack, x, positions, cfg, plan)
+    else:
+        tables = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        x, aux = _run_layers(stack, x, positions, cfg, tables, plan)
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps, cfg.fused_rmsnorm)
     return (x, aux) if with_aux else x
+
+
+def _pipeline_hidden(stack, x, positions, cfg: LlamaConfig, plan):
+    """This rank's pipeline stage (its L / pp layers) over M microbatches
+    of its rows: (hidden [B, T, e] on every pp rank, aux / M), the JAX
+    package's ``_pipeline_hidden`` (:519-562)."""
+    pp = plan.sizes["pp"]
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp={pp}")
+    B, T, e = x.shape
+    M = cfg.pp_microbatches or 2 * pp
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by {M} microbatches")
+    pos = positions[: B // M]
+    tables = _rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+
+    def stage_fn(stage_params, y):
+        return _run_layers(stage_params, y, pos, cfg, tables, plan)
+
+    out, aux = pipeline_apply(stack, x.reshape(M, B // M, T, e), stage_fn, plan.mesh,
+                              with_aux=True)
+    # per-microbatch aux values are token means: their mean over the M
+    # microbatches is the full batch's scale (as in the JAX package)
+    return out.reshape(B, T, e), aux / M
 
 
 def _unembed(params, cfg: LlamaConfig):
@@ -372,44 +596,87 @@ def _project_logits(x, params, cfg: LlamaConfig):
     return matmul_fp32_out(x, _unembed(params, cfg).to(x.dtype))
 
 
-def forward(params, tokens, cfg: LlamaConfig, positions=None):
-    """tokens: [B, T] int -> logits [B, T, vocab] (fp32)."""
-    x = forward_hidden(params, tokens, cfg, positions)
-    return _project_logits(x, params, cfg)
+def forward(params, tokens, cfg: LlamaConfig, positions=None, mesh=None):
+    """tokens: [B, T] int -> logits [B, T, vocab] (fp32). With a ``mesh``,
+    this rank's tokens' logits over the whole vocabulary (the vocab-parallel
+    projection all-gathered over tp)."""
+    x = forward_hidden(params, tokens, cfg, positions, mesh=mesh)
+    if mesh is None:
+        return _project_logits(x, params, cfg)
+    plan = _Plan(cfg, mesh)
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    w = plan.full(name, params[name])
+    logits = matmul_fp32_out(x, (w.t() if cfg.tie_embeddings else w).to(x.dtype))
+    return pmesh.all_gather(logits, plan.tp, -1) if plan.sharded(name, "vocab") else logits
 
 
-def loss_fn(params, batch, cfg: LlamaConfig, denom: Optional[torch.Tensor] = None):
+def loss_fn(params, batch, cfg: LlamaConfig, mesh=None):
     """Next-token cross-entropy. batch: {'tokens': [B, T+1]} (labels are
     the tokens shifted by one, a 'mask' [B, T+1] likewise) or {'tokens',
-    'labels', 'mask'}. The mean is over the mask sum, clamped at 1; a
-    data-parallel step passes ``denom``, the global batch's clamped mask
-    sum, and gets this rank's masked sum over it."""
+    'labels', 'mask'}. The mean is over the mask sum, clamped at 1.
+
+    With a ``mesh`` every rank calls it on its batch shard ({'tokens',
+    'labels'[, 'mask']} of [B / (dp fsdp), T / sp]; {'tokens': [.., T+1]}
+    when sp = 1) and gets its SHARE of the global loss: the shares of all
+    ranks sum to the loss (the denominator is the global mask sum; ranks
+    that hold the same tokens, over ep, pp and tp, split their term
+    equally; the aux term is split over every rank), so back-propagating
+    each share and summing each gradient over the ranks that hold a copy
+    of its leaf gives the loss's gradient (``training.make_train_step``)."""
     dev = params["embed"].device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     tokens = batch["tokens"]
     if "labels" in batch:
         labels, mask = batch["labels"], batch.get("mask")
     else:
+        if mesh is not None and pmesh.mesh_sizes(mesh)["sp"] > 1:
+            raise ValueError("a sequence-sharded batch needs 'labels' (shift before sharding)")
         labels = tokens[:, 1:]
         tokens = tokens[:, :-1]
         mask = batch.get("mask")
         if mask is not None:
             mask = mask[:, 1:]
-    x, aux = forward_hidden(params, tokens, cfg, with_aux=True)
+    x, aux = forward_hidden(params, tokens, cfg, with_aux=True, mesh=mesh)
+    if mesh is not None:
+        return _loss_share(x, aux, params, cfg, labels, mask, mesh)
     if cfg.fused_ce:
-        base = fused_cross_entropy(x, _unembed(params, cfg), labels, mask=mask, denom=denom)
+        base = fused_cross_entropy(x, _unembed(params, cfg), labels, mask=mask)
     else:
         logits = _project_logits(x, params, cfg)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, labels[..., None].long())[..., 0]
         if mask is not None:
             mask = mask.to(nll.dtype)
-            base = (nll * mask).sum() / (mask.sum().clamp(min=1) if denom is None else denom)
+            base = (nll * mask).sum() / mask.sum().clamp(min=1)
         else:
-            base = nll.mean() if denom is None else nll.sum() / denom
+            base = nll.mean()
     if cfg.moe_experts:
         return base + cfg.moe_aux_weight * aux
     return base
+
+
+def _loss_share(x, aux, params, cfg: LlamaConfig, labels, mask, mesh):
+    plan = _Plan(cfg, mesh)
+    sizes = plan.sizes
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+    tokens_group = pmesh.axis_group(mesh, ("dp", "fsdp", "sp"))
+    count = pmesh.all_reduce(mask.float().sum().detach(), tokens_group)
+    replicas = sizes["ep"] * sizes["pp"] * sizes["tp"]
+    # the vocab split over tp where the unembedding is; cfg.fused_ce picks
+    # the chunked, checkpointed loss or one step with the logits kept
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    w = plan.full(name, params[name])
+    w = w.t() if cfg.tie_embeddings else w
+    split = plan.sharded(name, "vocab")
+    nll = fused_nll_sum(x, w, labels, mask, chunk_size=1024 if cfg.fused_ce else None,
+                        group=plan.tp if split else None,
+                        first=plan.tp_rank * w.shape[1] if split else 0)
+    share = nll / (count.clamp(min=1) * replicas)
+    if cfg.moe_experts:
+        world = replicas * sizes["dp"] * sizes["fsdp"] * sizes["sp"]
+        share = share + cfg.moe_aux_weight * aux / world
+    return share
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,18 @@
 """Train-step builder: the counterpart of ``ray_tpu/models/training.py``.
 
-One device per rank, and data parallelism over a torch process group
-(``dp_group``), the counterpart of the JAX step over ``MeshSpec(dp=-1)``;
-the fsdp/tensor axes come with the port's multi-device slice. The step is
-eager PyTorch: ``loss_fn``'s forward (per-layer ``torch.utils.checkpoint``
-when ``cfg.remat``), ``torch.autograd.grad``, then ``default_optimizer``'s
-update applied to the params in place.
+One device per rank. Without a mesh the step runs on one device; with a
+mesh (``parallel/mesh.py``: dp, fsdp, ep, pp, sp, tp) every rank runs it on
+its shards, the counterpart of the JAX step over the same mesh. The step
+is eager PyTorch: ``loss_fn``'s forward (per-layer
+``torch.utils.checkpoint`` when ``cfg.remat``), ``torch.autograd.grad``,
+then ``default_optimizer``'s update applied to the params in place.
 
-Under a group of more than one rank the loss is the global batch's masked
-mean, as XLA computes it over the global batch: the mask sums are
-all-reduced first, each rank divides its local masked sum by that count,
-and the gradients are all-reduced (SUM) before the clip. The clip and
-AdamW then see the same global gradients on every rank, so the params stay
-equal across ranks. (A mean of per-rank means would be wrong when the
-masks differ.)
+On a mesh the loss is the global batch's masked mean, as XLA computes it
+over the global batch: the mask sums are all-reduced first and each rank
+back-propagates its share of the loss (a mean of per-rank means would be
+wrong when the masks differ); each leaf's gradient is then summed over
+the ranks that hold a copy of it, before the clip. The clip and AdamW see
+the same global gradients on every copy, so copies stay equal.
 
 ``default_optimizer`` mirrors the optax chain the JAX package builds,
 value for value and step for step: ``warmup_cosine_decay_schedule`` ->
@@ -33,7 +32,8 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn, param_specs
+from ray_tpu_torch.parallel import mesh as pmesh
 
 H100_BF16_DENSE_FLOPS = 989e12  # H100 SXM data sheet, dense bf16, at 700 W
 
@@ -165,18 +165,50 @@ class TrainState:
         return cls(d["params"], d["opt_state"], d["step"])
 
 
-def _mask_count(batch, device) -> torch.Tensor:
-    """The count ``loss_fn`` divides by, before its clamp: the mask's sum
-    over the predicted positions, else their number (fp32, 0-d)."""
-    mask = batch.get("mask")
-    if "labels" in batch:
-        n = batch["labels"].shape
-    else:
-        n = (batch["tokens"].shape[0], batch["tokens"].shape[1] - 1)
-        mask = None if mask is None else mask[:, 1:]
-    if mask is None:
-        return torch.tensor(float(n[0] * n[1]), device=device)
-    return torch.as_tensor(mask, device=device).float().sum()
+def batch_spec(mesh) -> tuple:
+    """The input batch's PartitionSpec: batch over (dp, fsdp), sequence over
+    sp (the JAX package's ``batch_sharding``, :42)."""
+    return pmesh.logical_pspec(mesh, "batch", "seq")
+
+
+def batch_index(mesh, cfg: LlamaConfig, B: int, T: int) -> tuple[torch.Tensor, slice]:
+    """This rank's rows (a LongTensor) and sequence slice of a global [B, T]
+    batch (``shard_batch``)."""
+    sizes = pmesh.mesh_sizes(mesh)
+    n = sizes["dp"] * sizes["fsdp"]
+    M = (cfg.pp_microbatches or 2 * sizes["pp"]) if sizes["pp"] > 1 else 1
+    if B % (M * n) or T % sizes["sp"]:
+        raise ValueError(f"batch [{B}, {T}] does not split into {M} microbatches over {n} "
+                         f"batch shards and {sizes['sp']} sequence shards")
+    mb, d, t = B // (M * n), pmesh.axis_index(mesh, ("dp", "fsdp")), T // sizes["sp"]
+    rows = torch.cat([torch.arange(m * (B // M) + d * mb, m * (B // M) + (d + 1) * mb)
+                      for m in range(M)])
+    j = mesh.get_local_rank("sp")
+    return rows, slice(j * t, (j + 1) * t)
+
+
+def shard_batch(batch: dict, mesh, cfg: LlamaConfig) -> dict:
+    """This rank's shard of a global batch, as ``loss_fn(mesh=)`` takes it:
+    {'tokens', 'labels'[, 'mask']} (labels shifted before the sequence is
+    cut), rows over (dp, fsdp) and the sequence over sp. Under pp the rows
+    are laid out as the JAX step's microbatches are sharded: microbatch m
+    holds global rows [m B / M, (m + 1) B / M), each shard of (dp, fsdp)
+    its slice of them; without pp that is the contiguous block
+    ``batch_spec`` gives. The layout matters only where rows interact (MoE
+    routing); a dense model gets the same loss from any assignment of rows."""
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    if "labels" not in batch:
+        tok = batch["tokens"]
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+                 **({"mask": batch["mask"][:, 1:]} if "mask" in batch else {})}
+    rows, cols = batch_index(mesh, cfg, *batch["tokens"].shape)
+    return {k: v[rows][:, cols].contiguous() for k, v in batch.items()}
+
+
+def _replicated_axes(spec: tuple, sizes: dict) -> tuple:
+    """The mesh axes (size > 1) that a leaf of this spec is copied over."""
+    used = {a for entry in spec for a in pmesh.spec_axes(entry)}
+    return tuple(a for a in pmesh.AXIS_ORDER if sizes[a] > 1 and a not in used)
 
 
 def make_train_step(
@@ -185,17 +217,27 @@ def make_train_step(
     loss: Optional[Callable] = None,
     device: Union[str, torch.device, None] = None,
     dp_group: Optional["dist.ProcessGroup"] = None,
+    mesh=None,
 ):
     """Returns (init_fn(seed) -> TrainState, step_fn(state, batch) -> (state,
     metrics)).
 
-    ``dp_group``: the data-parallel process group (each rank passes its own
-    shard of the global batch), or None for one device. With more than one
-    rank the step is the global batch's (module docstring); ``loss`` is
-    then called with ``denom=`` the global count, and ``metrics["loss"]``
-    is the global loss. MoE raises under more than one rank: the Switch aux
-    loss is a product of global routing statistics, which belongs to the
-    multi-device slice.
+    ``mesh`` (``parallel.mesh.build_mesh``): every rank of it builds the
+    step and calls it with its batch shard (``shard_batch``); ``init_fn``
+    gives each rank its param shard (``init_params(mesh=)``) and AdamW's
+    moments of the same shapes. The step back-propagates the rank's share
+    of the loss (``loss_fn(mesh=)``), then sums each leaf's gradient over
+    the mesh axes it is copied over (dp and fsdp for the data; pp for
+    ``embed``, ``unembed`` and ``final_norm``, which every stage holds;
+    tp, sp and ep where the leaf is not split), so every copy of a leaf
+    steps identically. The clip's global norm counts each element once:
+    each rank's squared norms over the copies of each leaf, summed over
+    the world. ``metrics["loss"]`` is the global loss on every rank.
+
+    ``dp_group``: a shorthand for ``MeshSpec(dp=world)`` over the default
+    group (each rank passes its shard of the global batch; ``{'tokens':
+    [B, T+1]}`` rows need no ``shard_batch``); None with no mesh is one
+    device.
 
     ``metrics`` holds ``loss`` (0-d tensor), ``grad_norm`` (the global norm
     of the gradients before clipping, 0-d fp32 tensor) and ``step``. The
@@ -207,12 +249,12 @@ def make_train_step(
     where the params are."""
     optimizer = optimizer or default_optimizer()
     loss = loss or loss_fn
-    dp = dp_group is not None and dist.get_world_size(dp_group) > 1
-    if dp and cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE under data parallelism is not ported: the aux loss needs the global "
-            "routing statistics (ray_tpu/parallel/moe.py:_route), a multi-device slice"
-        )
+    if mesh is None and dp_group is not None and dist.get_world_size(dp_group) > 1:
+        if dist.get_world_size(dp_group) != dist.get_world_size():
+            raise ValueError("dp_group must span the default process group")
+        mesh = pmesh.build_mesh(pmesh.MeshSpec(dp=-1), resolve_device(device).type)
+    if mesh is not None:
+        return _sharded_step(cfg, optimizer, loss, device, mesh)
 
     def init_fn(seed: int = 0) -> TrainState:
         params = init_params(cfg, seed, resolve_device(device))
@@ -221,19 +263,43 @@ def make_train_step(
     def step_fn(state: TrainState, batch):
         names = list(state.params)
         leaves = [state.params[k].requires_grad_(True) for k in names]
-        if dp:
-            count = _mask_count(batch, leaves[0].device)
-            dist.all_reduce(count, group=dp_group)
-            lval = loss(state.params, batch, cfg, denom=count.clamp(min=1))
-        else:
-            lval = loss(state.params, batch, cfg)
+        lval = loss(state.params, batch, cfg)
         grads = dict(zip(names, torch.autograd.grad(lval, leaves)))
-        lval = lval.detach()
-        if dp:
-            for g in grads.values():
-                dist.all_reduce(g, group=dp_group)
-            dist.all_reduce(lval, group=dp_group)
         gnorm = global_norm(grads.values())
+        updates, state.opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                                    g_norm=gnorm)
+        apply_updates(state.params, updates)
+        state.step += 1
+        return state, {"loss": lval.detach(), "grad_norm": gnorm, "step": state.step}
+
+    return init_fn, step_fn
+
+
+def _sharded_step(cfg: LlamaConfig, optimizer, loss: Callable, device, mesh):
+    sizes = pmesh.mesh_sizes(mesh)
+    specs = param_specs(cfg, mesh)
+    copied = {k: _replicated_axes(s, sizes) for k, s in specs.items()}
+
+    def init_fn(seed: int = 0) -> TrainState:
+        params = init_params(cfg, seed, resolve_device(device), mesh=mesh)
+        return TrainState(params, optimizer.init(params), 0)
+
+    def step_fn(state: TrainState, batch):
+        names = list(state.params)
+        leaves = [state.params[k].requires_grad_(True) for k in names]
+        share = loss(state.params, batch, cfg, mesh=mesh)
+        grads = dict(zip(names, torch.autograd.grad(share, leaves)))
+        sq = []
+        for k in names:
+            for axis in copied[k]:  # one axis at a time: copies end bit-equal
+                dist.all_reduce(grads[k], group=pmesh.axis_group(mesh, axis))
+            copies = math.prod(sizes[a] for a in copied[k])
+            sq.append(torch.linalg.vector_norm(grads[k], dtype=torch.float32).square() / copies)
+        norm_sq = torch.stack(sq).sum()
+        lval = share.detach().clone()
+        dist.all_reduce(norm_sq)
+        dist.all_reduce(lval)
+        gnorm = norm_sq.sqrt()
         updates, state.opt_state = optimizer.update(grads, state.opt_state, state.params,
                                                     g_norm=gnorm)
         apply_updates(state.params, updates)

@@ -1,5 +1,4 @@
-"""Routed mixture-of-experts on one device: the counterpart of the
-single-device half of ``ray_tpu/parallel/moe.py``.
+"""Routed mixture-of-experts: the counterpart of ``ray_tpu/parallel/moe.py``.
 
 Top-k routing with a fixed expert capacity (Switch-Transformer style):
 each token's k chosen experts take it in token-major order until an
@@ -11,15 +10,18 @@ einsums: a [G, E, C] one-hot at the train shape (8192 x 8 x 2560) holds
 FFN, while the gather reads each kept token once and the combine sums at
 most k rows per token.
 
-The expert-parallel ``moe_layer`` (all-to-all over a mesh axis) comes
-with the port's multi-device slice.
+``moe_layer`` is the expert-parallel form (experts sharded over ``ep``,
+token buffers exchanged with all-to-alls); ``moe_dense`` with a mesh is
+the form the model runs at ep = 1 on a sharded batch.
 """
 
 from __future__ import annotations
 
-from typing import Union
+import math
+from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
@@ -105,21 +107,12 @@ def _route(params, x, num_experts: int, top_k: int, capacity: int):
     return disp, comb, _aux_loss(probs, gate_idx, E)
 
 
-def moe_dense(params, x, *, num_experts: int, top_k: int = 2, capacity_factor: float = 1.25):
-    """Single-device routed MoE, with the capacity of the JAX package's
-    ``moe_dense``: C = max(1, int(cf * G * k / E)).
-
-    x: [G, d] -> (y [G, d], aux). The same function as the one-hot
-    einsums of ``_route``: expert slot (e, c) gathers the token that holds
-    it (an empty slot reads a zero row), and each token sums its kept
-    choices' expert outputs times their gates, in x's dtype."""
+def _gather_slots(x, gate_idx, pos, keep, num_experts: int, capacity: int):
+    """Expert slot (e, c) gathers the token that holds it (an empty slot
+    reads a zero row): (expert_in [E, C, d], slot [G, k], the flat slot
+    e * C + c of each choice, E * C for a dropped one)."""
     G, d = x.shape
-    E = num_experts
-    C = max(1, int(capacity_factor * G * top_k / E))
-    probs, gate_vals, gate_idx = topk_gates(params, x, top_k)
-    pos, keep = _slots(gate_idx, E, C)
-    # flat slot e * C + c of each kept choice; a dropped one goes to the
-    # spare index E * C, which no expert reads
+    E, C = num_experts, capacity
     slot = torch.where(keep, gate_idx * C + pos, E * C)
     token = torch.arange(G, device=x.device).unsqueeze(1).expand_as(slot)
     holder = torch.full((E * C + 1,), G, dtype=torch.long, device=x.device)
@@ -127,9 +120,127 @@ def moe_dense(params, x, *, num_experts: int, top_k: int = 2, capacity_factor: f
     # index_select, not indexing: its backward is an index_add (each row
     # sums at most k terms), where indexing's sorts the indices
     x_pad = torch.cat([x, x.new_zeros(1, d)])
-    out = _expert_ffn(params, x_pad.index_select(0, holder[: E * C]).view(E, C, d))
+    return x_pad.index_select(0, holder[: E * C]).view(E, C, d), slot
+
+
+def _combine(out, slot, keep, gate_vals, dtype):
+    """Each token's kept choices' expert outputs times their gates, summed:
+    out [E, C, d] -> y [G, d] in ``dtype``."""
+    E, C, d = out.shape
+    G = slot.shape[0]
     picked = out.reshape(E * C, d).index_select(0, slot.clamp(max=E * C - 1).flatten())
-    w = (keep * gate_vals).to(x.dtype)
-    y = torch.einsum("gkd,gk->gd", picked.view(G, -1, d), w)
+    w = (keep * gate_vals).to(dtype)
+    return torch.einsum("gkd,gk->gd", picked.view(G, -1, d), w)
+
+
+def moe_dense(params, x, *, num_experts: int, top_k: int = 2, capacity_factor: float = 1.25,
+              mesh=None, row_len: Optional[int] = None):
+    """Routed MoE with every expert on this rank, with the capacity of the
+    JAX package's ``moe_dense``: C = max(1, int(cf * G * k / E)).
+
+    x: [G, d] -> (y [G, d], aux). The same function as the one-hot
+    einsums of ``_route``: expert slot (e, c) gathers the token that holds
+    it (an empty slot reads a zero row), and each token sums its kept
+    choices' expert outputs times their gates, in x's dtype.
+
+    With a ``mesh`` whose token axes (dp, fsdp, sp) hold more than one rank,
+    x is this rank's share of one global token set, the JAX package's MoE
+    at ep = 1 on a sharded batch, where XLA computes the unsharded
+    function: rows of ``row_len`` tokens (this rank's batch rows, its
+    sequence shard of each). Capacity comes from the global token count,
+    each choice's position in its expert counts every earlier token of the
+    global (row, position) order (the counts of earlier shards are
+    all-gathered), and the aux loss is the product of global means."""
+    from ray_tpu_torch.parallel.mesh import axis_group
+
+    group = None if mesh is None else axis_group(mesh, ("dp", "fsdp", "sp"))
+    if group is not None:
+        return _moe_global(params, x, num_experts, top_k, capacity_factor, mesh, group, row_len)
+    G, d = x.shape
+    E = num_experts
+    C = max(1, int(capacity_factor * G * top_k / E))
+    probs, gate_vals, gate_idx = topk_gates(params, x, top_k)
+    pos, keep = _slots(gate_idx, E, C)
+    expert_in, slot = _gather_slots(x, gate_idx, pos, keep, E, C)
+    y = _combine(_expert_ffn(params, expert_in), slot, keep, gate_vals, x.dtype)
     return y, _aux_loss(probs, gate_idx, E)
 
+
+def _moe_global(params, x, E, top_k, capacity_factor, mesh, group, row_len):
+    """``moe_dense`` over a token set sharded on the (dp, fsdp, sp) group."""
+    from ray_tpu_torch.parallel.mesh import all_reduce, axis_index, mesh_sizes
+
+    G, d = x.shape
+    R = G // row_len
+    n = dist.get_world_size(group)
+    sp = mesh_sizes(mesh)["sp"]
+    G_all = G * n
+    C = max(1, int(capacity_factor * G_all * top_k / E))
+    probs, gate_vals, gate_idx = topk_gates(params, x, top_k)
+    onehot = F.one_hot(gate_idx, E).to(torch.int64)  # [G, k, E]
+    seg = onehot.view(R, row_len * top_k, E)  # each row's choices, token-major
+    counts = seg.sum(1)  # [R, E]
+    every = [torch.empty_like(counts) for _ in range(n)]
+    dist.all_gather(every, counts.contiguous(), group=group)
+    # group rank = batch shard * sp + sequence shard; the global order of
+    # the segments is (batch shard, row, sequence shard)
+    order = torch.stack(every).view(n // sp, sp, R, E).permute(0, 2, 1, 3).reshape(-1, E)
+    before = (order.cumsum(0) - order).view(n // sp, R, sp, E)
+    offset = before[axis_index(mesh, ("dp", "fsdp")), :, mesh.get_local_rank("sp")]  # [R, E]
+    pos = ((seg.cumsum(1) - seg + offset[:, None, :]) * seg).sum(-1).view(G, top_k)
+    keep = pos < C
+    # this rank's kept choices, packed into buffers of its own
+    kept = (onehot * keep[..., None]).flatten(0, 1)
+    local = ((kept.t().cumsum(1).t() - kept).view_as(onehot) * onehot).sum(-1)
+    C_buf = max(1, min(C, G * top_k))
+    expert_in, slot = _gather_slots(x, gate_idx, local, keep, E, C_buf)
+    y = _combine(_expert_ffn(params, expert_in), slot, keep, gate_vals, x.dtype)
+    me = all_reduce(probs.sum(0), group) / G_all
+    ce = torch.stack(every).sum((0, 1)).float() / G_all
+    return y, (me * ce).sum() * E
+
+
+def moe_layer(params, x, mesh, *, axis_name: str = "ep", num_experts: int, top_k: int = 2,
+              capacity_factor: float = 1.25, tokens_axis_names: tuple = ("dp", "sp")):
+    """Expert-parallel MoE FFN: the counterpart of the JAX package's
+    ``moe_layer`` (:150, body ``_moe_local`` :90).
+
+    params: the router (whole) and this rank's experts, [E / ep, ...] of
+    each bank, expert e on rank e // (E / ep) of ``axis_name``. x: this
+    rank's tokens [G_local, d] (its shard of ``tokens_axis_names``; tokens
+    are replicated over ``axis_name``). Routing is local to the token
+    shard: the capacity comes from the local token count (JAX :176-180),
+    buffers [ep, E / ep, C, d] go to the experts' ranks and back with
+    ``all_to_all_single``, and the aux loss is the mean of the shards'
+    local values over the token axes (JAX's ``pmean``). Returns (y
+    [G_local, d], aux)."""
+    from torch.distributed.nn.functional import all_to_all_single
+
+    from ray_tpu_torch.parallel.mesh import all_reduce, axis_group, mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    ep = sizes[axis_name]
+    if num_experts % ep:
+        raise ValueError(f"num_experts {num_experts} not divisible by {axis_name}={ep}")
+    G, d = x.shape
+    E, E_l = num_experts, num_experts // ep
+    C = max(1, int(capacity_factor * G * top_k / E))
+    probs, gate_vals, gate_idx = topk_gates(params, x, top_k)
+    pos, keep = _slots(gate_idx, E, C)
+    expert_in, slot = _gather_slots(x, gate_idx, pos, keep, E, C)  # [E, C, d]
+    group = axis_group(mesh, axis_name)
+    if group is None:
+        out = _expert_ffn(params, expert_in)
+    else:
+        a = expert_in.reshape(ep, E_l, C, d)  # by destination rank
+        b = all_to_all_single(torch.empty_like(a), a, group=group)  # by source rank
+        out = _expert_ffn(params, b.transpose(0, 1).reshape(E_l, ep * C, d))
+        back = out.reshape(E_l, ep, C, d).transpose(0, 1).contiguous()
+        out = all_to_all_single(torch.empty_like(back), back, group=group).reshape(E, C, d)
+    y = _combine(out, slot, keep, gate_vals, x.dtype)
+    aux = _aux_loss(probs, gate_idx, E)
+    token_axes = tuple(a for a in tokens_axis_names if sizes.get(a, 1) > 1)
+    if token_axes:
+        n_shards = math.prod(sizes[a] for a in token_axes)
+        aux = all_reduce(aux, axis_group(mesh, token_axes)) / n_shards
+    return y, aux

@@ -223,3 +223,45 @@ class WorkerGroup:
             conn.close()
         self._conns = {}
         self._store = None
+
+
+def run_ranks(train_fn, config: Optional[dict], num_workers: int, use_gpu: bool,
+              timeout_s: float, storage_dir: Optional[str] = None) -> list[list[dict]]:
+    """Run ``train_fn(config)`` on ``num_workers`` ranks of one process
+    group and return each rank's reported metrics, in order, by rank.
+    Unlike ``TorchTrainer.fit`` there is no restart and a deadline: a rank's
+    error or death, or ``timeout_s`` passing (a hung collective), raises
+    ``RuntimeError`` after every rank is stopped."""
+    import shutil
+    import tempfile
+
+    group = WorkerGroup(ScalingConfig(num_workers=num_workers, use_gpu=use_gpu),
+                        experiment_name="ranks")
+    own = storage_dir is None
+    storage_dir = storage_dir or tempfile.mkdtemp(prefix="ray_tpu_torch_ranks_")
+    results: list[list[dict]] = [[] for _ in range(num_workers)]
+    done: set[int] = set()
+    deadline = time.monotonic() + timeout_s
+    try:
+        group.start(train_fn, config, storage_dir, None, [{} for _ in range(num_workers)])
+        while len(done) < num_workers:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"ranks {sorted(set(range(num_workers)) - done)} did not "
+                                   f"finish within {timeout_s:.0f} s")
+            msgs, exited = group.poll(0.1)
+            for m in msgs:
+                if m["kind"] == "result":
+                    results[m["rank"]].append(m["metrics"])
+                elif m["kind"] == "done":
+                    done.add(m["rank"])
+                elif m["kind"] == "error":
+                    raise RuntimeError(f"rank {m['rank']} failed:\n{m['error']}")
+            for rank, code in sorted(exited.items()):
+                if rank not in done:
+                    raise RuntimeError(f"rank {rank} exited with code {code} before its loop "
+                                       "finished")
+    finally:
+        group.shutdown(wait_s=30.0 if len(done) == num_workers else 0.0)
+        if own:
+            shutil.rmtree(storage_dir, ignore_errors=True)
+    return results

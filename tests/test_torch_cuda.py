@@ -756,3 +756,108 @@ def test_tensor_serializer_on_a_cuda_tensor():
     back = deserialize_tensor(pickle.loads(blob, buffers=buffers))
     assert back.device.type == "cpu" and back.dtype == torch.bfloat16
     assert torch.equal(back, t.cpu())
+
+
+# ---- the parallel layer on the card ----------------------------------------------
+
+
+def test_ring_blocks_match_the_whole_kernel_on_card():
+    """Ring attention's per-block steps for 4 simulated sequence shards
+    (forward, LSE merge, backward from the merged o and lse) against one
+    whole-sequence call of the kernels, within the attention limits; 10
+    launches of each kernel (causal block skipping)."""
+    _need_card()
+    from ray_tpu_torch.ops.flash_attention import (
+        agreement, flash_attention, flash_attention_bwd_kernel, flash_attention_fwd_kernel,
+        reset_launches)
+    from ray_tpu_torch.parallel.ring_attention import (
+        block_backward, block_forward, merge_blocks, ring_steps)
+
+    B, T, H, KV, D, P = 1, 512, 4, 2, 128, 4
+    t, scale = T // P, D**-0.5
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, do = (torch.randn(B, T, H, D, generator=g, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, T, KV, D, generator=g, device="cuda").bfloat16() for _ in range(2))
+    o_whole, lse_whole = flash_attention_fwd_kernel(q, k, v)
+    whole = (o_whole, lse_whole) + flash_attention_bwd_kernel(q, k, v, o_whole, lse_whole, do)
+    reset_launches()
+    outs, lses, dq = [], [], []
+    dk = [torch.zeros(B, t, KV, D, device="cuda") for _ in range(P)]
+    dv = [torch.zeros(B, t, KV, D, device="cuda") for _ in range(P)]
+    sl = lambda x, i: x[:, i * t:(i + 1) * t].contiguous()  # noqa: E731
+    for i in range(P):
+        o_acc = lse = None
+        steps = [(src, m) for src, m in ring_steps(i, P, True) if m is not None]
+        for src, mode in steps:
+            o_acc, lse = merge_blocks(o_acc, lse, *block_forward(
+                sl(q, i), sl(k, src), sl(v, src), mode, scale))
+        o_i = o_acc.bfloat16()
+        acc = torch.zeros(B, t, H, D, device="cuda")
+        for src, mode in steps:
+            a, b, c = block_backward(sl(q, i), sl(k, src), sl(v, src), o_i, lse, sl(do, i),
+                                     mode, scale)
+            acc += a
+            dk[src] += b
+            dv[src] += c
+        outs.append(o_i)
+        lses.append(lse)
+        dq.append(acc)
+    f = flash_attention
+    assert (f.launches_fwd, f.launches_bwd_dq, f.launches_bwd_dkdv) == (10, 10, 10)
+    ring = (torch.cat(outs, 1), torch.cat(lses, -1), torch.cat(dq, 1), torch.cat(dk, 1),
+            torch.cat(dv, 1))
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), ring, whole):
+        assert agreement(a, b)["ok"], (name, agreement(a, b))
+
+
+def test_dryrun_multichip_one_nccl_rank_on_card():
+    """graft_entry.dryrun_multichip(1): every mesh of the sweep (every axis
+    1 on one card) on one NCCL rank, bf16 at head_dim 64 (the kernels' D),
+    each mesh's loss within 1e-3 of the unsharded step on the same batch,
+    the attention kernels launched L / L / L a step (no remat)."""
+    _need_card()
+    import multiprocessing
+
+    from ray_tpu_torch.graft_entry import dryrun_multichip
+
+    kw = dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=256, dtype=torch.bfloat16,
+              attention="splash")
+    recs = dryrun_multichip(1, model_kwargs=kw, reference=True, timeout_s=300)
+    assert not [p for p in multiprocessing.active_children() if "-rank-" in p.name]
+    assert len(recs) == 7
+    for r in recs:
+        assert abs(r["loss"] - r["ref_loss"]) <= 1e-3 * abs(r["ref_loss"]), r["label"]
+        L = 4 if r["label"].startswith("pp2") else 2
+        assert r["launches"] == {"fwd": L, "bwd_dq": L, "bwd_dkdv": L}, r["label"]
+
+
+def test_iter_device_batches_pinned_non_blocking_on_card():
+    """Batches land on the card with the source's values; each host array
+    goes through a pinned buffer (``pin_memory``) before its non-blocking
+    copy."""
+    _need_card()
+    from unittest import mock
+
+    import numpy as np
+
+    from ray_tpu_torch.data import iter_device_batches
+
+    class Source:
+        def iter_batches(self, batch_size, batch_format, drop_last):
+            for i in range(3):
+                yield {"x": np.full((batch_size, 4), i, np.int32)}
+
+    pinned = []
+    real = torch.Tensor.pin_memory
+
+    def spy(self, *a, **kw):
+        out = real(self, *a, **kw)
+        pinned.append(out.is_pinned())
+        return out
+
+    with mock.patch.object(torch.Tensor, "pin_memory", spy):
+        batches = list(iter_device_batches(Source(), batch_size=2, prefetch=2))
+    assert pinned == [True] * 3
+    for i, b in enumerate(batches):
+        assert b["x"].device.type == "cuda"
+        assert torch.equal(b["x"].cpu(), torch.full((2, 4), i, dtype=torch.int32))

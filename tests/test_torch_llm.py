@@ -266,12 +266,14 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    """What the port still lacks: tensor/sequence-parallel serving (the
-    multi-device slice). Checkpoint loading and LoRA adapters from a path
-    came with the Train layer (tests/test_torch_checkpoint.py)."""
+    """What the port still lacks: tensor/sequence-parallel serving, which
+    needs one process a card (the gang-serving slice). Checkpoint loading
+    and LoRA adapters from a path came with the Train layer
+    (tests/test_torch_checkpoint.py)."""
     small = dict(max_seq_len=32, prefill_buckets=(32,))
     for kw in ({"tensor_parallel_degree": 2}, {"sequence_parallel_degree": 2}):
-        with pytest.raises(NotImplementedError, match="tensor/sequence-parallel"):
+        with pytest.raises(NotImplementedError,
+                           match="tensor/sequence-parallel serving.*gang-serving slice"):
             TorchEngine(LLMConfig(engine=EngineConfig(**small, **kw)), device="cpu")
 
 

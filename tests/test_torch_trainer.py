@@ -334,11 +334,11 @@ def _dp_batch(vocab: int):
     return {"tokens": tokens, "mask": mask}
 
 
-def _run_dp_steps(params_np: dict, batch: dict, group, rank: int, n: int):
+def _run_dp_steps(params_np: dict, batch: dict, group, rank: int, n: int, model_kw=None):
     from ray_tpu_torch.models import llama as tl
     from ray_tpu_torch.models import training as tt
 
-    cfg = tl.LlamaConfig.tiny()
+    cfg = tl.LlamaConfig.tiny(**(model_kw or {}))
     params = {k: torch.from_numpy(v.copy()) for k, v in params_np.items()}
     opt = tt.default_optimizer(**DP_OPT)
     state = tt.TrainState(params, opt.init(params), 0)
@@ -359,7 +359,8 @@ def _loop_dp(config):
 
     ctx = train.get_context()
     rank, n = ctx.get_world_rank(), ctx.get_world_size()
-    state, out = _run_dp_steps(config["params"], config["batch"], dist.group.WORLD, rank, n)
+    state, out = _run_dp_steps(config["params"], config["batch"], dist.group.WORLD, rank, n,
+                               config.get("model_kw"))
     train.report({"losses": [x for x, _ in out], "grad_norms": [g for _, g in out],
                   "ranks_equal": equal_across_ranks(bit_checksums(state.params), "cpu"),
                   "params": {k: v.detach().numpy() for k, v in state.params.items()}})
@@ -411,13 +412,47 @@ def test_dp_step_matches_jax_dp2_mesh_and_one_rank(storage):
         assert _rel(v, one.params[k].detach().numpy()) <= 1e-5, k
 
 
-def test_moe_under_data_parallelism_raises(monkeypatch):
-    from ray_tpu_torch.models import llama as tl
-    from ray_tpu_torch.models import training as tt
+def test_moe_dp_step_matches_jax_dp2_mesh(storage):
+    """MoE under data parallelism: the port's 2-rank gloo step (the batch's
+    rows split, the routing over the global batch: capacity from the
+    global token count, positions counting the other rank's tokens, the aux
+    loss of global means) against JAX's make_train_step on a dp=2 mesh, at
+    a capacity that drops tokens; loss, grad norm and params as the dense
+    test holds them."""
+    import jax
+    import jax.numpy as jnp
 
-    cfg = tl.LlamaConfig.tiny(moe_experts=4)
-    # a stand-in group of two ranks: the check runs before any collective
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="MoE under data parallelism"):
-        tt.make_train_step(cfg, device="cpu", dp_group=object())
-    tt.make_train_step(cfg, device="cpu", dp_group=None)  # one device: fine
+    from ray_tpu.models import llama as jl
+    from ray_tpu.models import training as jt
+    from ray_tpu.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.models import llama as tl
+
+    kw = {"moe_experts": 4, "moe_capacity_factor": 0.5}
+    jcfg = jl.LlamaConfig.tiny(**kw)
+    params = _conditioned(tl._param_shapes(tl.LlamaConfig.tiny(**kw)), seed=4)
+    batch = _dp_batch(jcfg.vocab_size)
+
+    mesh = build_mesh(MeshSpec(dp=2), devices=jax.devices()[:2])
+    jopt = jt.default_optimizer(**DP_OPT)
+    _, jstep = jt.make_train_step(jcfg, mesh, optimizer=jopt)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = jt.TrainState(jp, jopt.init(jp), jnp.zeros((), jnp.int32))
+    jbatch = jax.device_put({k: jnp.asarray(v) for k, v in batch.items()}, jt.batch_sharding(mesh))
+    jout = []
+    for _ in range(DP_STEPS):
+        jstate, jm = jstep(jstate, jbatch)
+        jout.append((float(jm["loss"]), float(jm["grad_norm"])))
+
+    result = TorchTrainer(
+        _loop_dp,
+        train_loop_config={"params": params, "batch": batch, "model_kw": kw},
+        scaling_config=ScalingConfig(num_workers=2, **CPU),
+        run_config=RunConfig(name="moe-dp", storage_path=storage),
+    ).fit()
+    assert result.error is None, result.error
+    got = result.metrics
+    assert got["ranks_equal"]
+    np.testing.assert_allclose(got["losses"], [x for x, _ in jout], rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norms"], [g for _, g in jout], rtol=1e-5)
+    for k, v in got["params"].items():
+        assert _rel(v, np.asarray(jstate.params[k])) <= 1e-5, k
