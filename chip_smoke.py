@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path
-(dense, MoE and multi-LoRA), its training path (dense and MoE, remat "full"
-and "dots"), its int8 weight path, the entry() twin, and the Train layer's
-train -> checkpoint -> serve path.
+(dense, MoE and multi-LoRA; one process, and a gang of rank processes), its
+training path (dense and MoE, remat "full" and "dots"), its int8 weight
+path, the entry() twin, and the Train layer's train -> checkpoint -> serve
+path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -41,6 +42,14 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 seeded sampled requests; kernel launch counts are reset
                 just before and read just after; every decode step is a
                 CUDA-graph replay (decode_graph_replays == decode_steps).
+  5a. gang_serve — the serve phase's model through GangLLMServer (llm/gang.py):
+                one rank process holding the card in a one-rank NCCL world,
+                decode_steps 4, run-ahead 2: 16 concurrent greedy requests
+                equal token for token to the single-process TorchEngine's on
+                the same config; RMSNorm launches counted in the rank; tok/s,
+                TTFT, rank start-up and plan round trip beside the serve
+                phase's; a rank killed mid-request and its replay equal to
+                an uninterrupted run.
   5b. decode_graph — the engine's DecodeGraph at full 3B width and depth
                 (well-conditioned weights, 16 rows at 96 positions): 8
                 graphed steps against 8 eager decode_steps on cloned caches
@@ -973,6 +982,150 @@ def gc_collect(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_gang_serve(torch, card: str, serve: dict) -> dict:
+    """Gang serving on the card (llm/gang.py): GangLLMServer with one rank,
+    a spawned process holding the card in a one-rank NCCL world, on the
+    serving mesh path (every axis 1), at llama3.2-3b full width and depth
+    (seeded bf16 weights, fused RMSNorm), 16 slots x 1024, chunk 256,
+    decode_steps 4, decode_runahead 2.
+
+    Same config, the single-process TorchEngine first: its 16 greedy
+    completions of the serve phase's prompts (64 tokens). Then the gang:
+    start-up, a warm-up, the rank's counters set to 0, the same 16
+    requests submitted at once (tok/s, TTFT p50/p99, plan round trip from
+    dispatch to rank 0's reply), the counters read in the rank. Limits:
+    every first token equal to the engine's, and every full completion too
+    (expected share 1.0: the same kernels at the same shapes, prefill
+    chunks padded to 256 in both, each decode step the replay of a graph
+    over the same [16, ...] cache); RMSNorm launches counted in the rank
+    equal (2L+1) per decode step and per final chunk, 2L per mid chunk, as
+    the serve phase derives them; every decode step a graph replay. Then a
+    seeded sampled request whose rank is killed after its first token
+    streamed: the gang is rebuilt and the replayed stream equals an
+    uninterrupted run of the same request."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import (EngineConfig, LLMConfig, ModelConfig, SamplingParams,
+                                   TorchEngine)
+    from ray_tpu_torch.llm.gang import GangLLMServer
+
+    cfg = LLMConfig(
+        model=ModelConfig(model_id="llama3.2-3b", tokenizer="byte", seed=0,
+                          model_kwargs={"fused_rmsnorm": True}),
+        engine=EngineConfig(max_num_seqs=16, max_seq_len=1024, prefill_buckets=(256, 512, 1024),
+                            prefill_chunk=256, decode_steps=4, decode_runahead=2),
+    )
+    prompts = _serve_prompts()
+    greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+
+    def wait(r):
+        if not r.done.wait(600) or r.error is not None:
+            raise AssertionError(f"gang_serve: a request failed: {r.error!r}")
+
+    def run(submit):
+        """The 16 prompts submitted at once; each request waited for."""
+        reqs = [submit(p) for p in prompts]
+        for r in reqs:
+            wait(r)
+        return reqs
+
+    eng = TorchEngine(cfg)
+    try:
+        eng.generate("warm up " * 12, sampling_params=greedy)
+        t0 = time.perf_counter()
+        ref = run(lambda p: eng.submit(p, sampling_params=greedy))
+        engine_wall = time.perf_counter() - t0
+        ref_tokens = [list(r.out_tokens) for r in ref]
+    finally:
+        eng.shutdown()
+        del eng
+        gc_collect(torch)
+
+    t0 = time.perf_counter()
+    gang = GangLLMServer(cfg)
+    startup_s = time.perf_counter() - t0
+    try:
+        wait(gang.submit("warm up " * 12, greedy))
+        gang.rank_counts(reset=True)  # counts from here on are the main path's
+        n_plans = len(gang.plan_times())
+        t0 = time.perf_counter()
+        reqs = run(lambda p: gang.submit(p, greedy))
+        wall = time.perf_counter() - t0
+        (counts,) = gang.rank_counts()
+        plans = np.asarray(gang.plan_times()[n_plans:])
+        launches = counts["launches"]["rmsnorm"]
+        prog = counts["programs"]
+        n_norms = 2 * L_3B + 1
+        expected = (n_norms * (prog["decode_steps"] + prog["prefill_final_chunks"])
+                    + (n_norms - 1) * prog["prefill_mid_chunks"])
+        ttft = np.asarray([r.first_token_t - r.submitted_t for r in reqs]) * 1e3
+        got = [r.out_tokens for r in reqs]
+        first_equal = sum(g[0] == w[0] for g, w in zip(got, ref_tokens))
+        full_equal = sum(g == w for g, w in zip(got, ref_tokens))
+
+        # a rank killed mid-request, the gang rebuilt, the request replayed
+        hot = SamplingParams(max_tokens=64, temperature=0.8, top_k=50, seed=7, ignore_eos=True)
+        req = gang.submit("Sample this after a rank dies.", hot)
+        req.stream_queue.get(timeout=600)
+        streamed_at_kill = len(req.out_tokens)
+        t0 = time.perf_counter()
+        gang.workers[0].kill()
+        wait(req)
+        replay_s = time.perf_counter() - t0
+        again = gang.submit("Sample this after a rank dies.", hot)
+        wait(again)
+        stats = gang.stats()
+        out = {
+            "phase": "gang_serve", "card": card, "model": "llama3.2-3b",
+            "gang": gang.gang_info, "ranks": gang.num_workers,
+            "decode_steps_per_plan": cfg.engine.decode_steps,
+            "decode_runahead": cfg.engine.decode_runahead,
+            "gang_startup_s": startup_s,
+            "rank_startup_s": gang.gang_info["rank_startup_s"][0],
+            "wall_s_16x64": wall,
+            "out_tok_per_s": 16 * 64 / wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "plans": len(plans),
+            "plan_roundtrip_ms_p50": float(np.percentile(plans[:, 0], 50)),
+            "plan_roundtrip_ms_mean": float(plans[:, 0].mean()),
+            "plan_exec_ms_mean": float(plans[:, 1].mean()),
+            # dispatch -> the rank takes it up: the pipe, and the wait behind
+            # the plan in flight (run-ahead)
+            "plan_queue_ms_mean": float((plans[:, 0] - plans[:, 1]).mean()),
+            "decode_step_device_ms": prog["decode_device_ms"] / prog["decode_steps"],
+            "rmsnorm_launches": launches, "rmsnorm_launches_expected": expected,
+            "rank_flash_launches": {k: v for k, v in counts["launches"].items()
+                                    if k.startswith("flash")},
+            **{k: prog[k] for k in ("decode_programs", "decode_steps", "decode_graph_replays",
+                                    "prefill_mid_chunks", "prefill_final_chunks")},
+            "engine_out_tok_per_s": 16 * 64 / engine_wall,
+            "first_tokens_equal_engine": first_equal,
+            "full_completions_equal_engine_share": full_equal / 16,
+            "full_completions_equal_expected_share": 1.0,
+            "serve_phase": {k: serve[k] for k in ("out_tok_per_s", "ttft_ms_p50", "ttft_ms_p99",
+                                                  "decode_step_ms_mean",
+                                                  "decode_steps_per_program")},
+            "kill": {"streamed_at_kill": streamed_at_kill, "rebuilds": stats["rebuilds"],
+                     "replay_s": replay_s, "replay_equal": req.out_tokens == again.out_tokens,
+                     "tokens": len(req.out_tokens)},
+        }
+    finally:
+        gang.shutdown()
+    emit(out)
+    if first_equal != 16:
+        raise AssertionError(f"gang_serve: {16 - first_equal} first tokens differ from the "
+                             "engine's")
+    if full_equal != 16:
+        raise AssertionError(f"gang_serve: {16 - full_equal} completions differ from the engine's")
+    if launches != expected or prog["decode_graph_replays"] != prog["decode_steps"]:
+        raise AssertionError(f"gang_serve: rmsnorm launches {launches} != {expected}, or a decode "
+                             f"step was no graph replay ({prog})")
+    if out["kill"]["rebuilds"] != 1 or not out["kill"]["replay_equal"] or len(req.out_tokens) != 64:
+        raise AssertionError(f"gang_serve: the replay after the kill: {out['kill']}")
+    return out
+
+
 MOE = {"moe_experts": 8, "moe_top_k": 2}
 SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
@@ -1846,6 +1999,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = timed_phase("serve", phase_serve)
     torch.cuda.empty_cache()
+    gang_serve = timed_phase("gang_serve", lambda torch, card: phase_gang_serve(torch, card, serve))
     timed_phase("decode_graph", phase_decode_graph)
     timed_phase("numerics", phase_numerics)
     train = timed_phase("train", phase_train)
@@ -1899,6 +2053,8 @@ def main() -> int:
         "launches": serve["rmsnorm_launches"],
         # each serving path, its counter set to 0 just before it
         "launches_by_path": {"serve": serve["rmsnorm_launches"],
+                             # the gang's rank process, its own counters
+                             "gang_serve": gang_serve["rmsnorm_launches"],
                              "moe_serve": moe_serve["rmsnorm_launches"],
                              "lora_serve": lora_serve["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"]},

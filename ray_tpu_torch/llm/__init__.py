@@ -1,8 +1,11 @@
-"""ray_tpu_torch.llm — LLM serving on one CUDA device.
+"""ray_tpu_torch.llm — LLM serving on CUDA devices.
 
 Counterpart of ``ray_tpu.llm``: the continuous-batching ``TorchEngine``
-and the OpenAI-shaped ``LLMServer`` over it, with the JAX package's config
-dataclasses (own copies).
+and the OpenAI-shaped ``LLMServer`` over it, on one card; for a tensor- or
+sequence-parallel config, a gang of rank processes, one a card
+(``GangLLMServer``, ``llm/gang.py``) running the lockstep SPMD engine
+(``SPMDGenerator``, ``llm/spmd.py``), behind the same surfaces; with the
+JAX package's config dataclasses (own copies).
 """
 
 from ray_tpu_torch.llm.config import (
@@ -12,14 +15,18 @@ from ray_tpu_torch.llm.config import (
     SamplingParams,
 )
 from ray_tpu_torch.llm.engine import RequestOutput, TorchEngine
+from ray_tpu_torch.llm.gang import GangLLMServer
 from ray_tpu_torch.llm.server import LLMServer
+from ray_tpu_torch.llm.spmd import SPMDGenerator
 
 __all__ = [
     "EngineConfig",
+    "GangLLMServer",
     "LLMConfig",
     "LLMServer",
     "ModelConfig",
     "RequestOutput",
+    "SPMDGenerator",
     "SamplingParams",
     "TorchEngine",
 ]

@@ -137,10 +137,23 @@ class LLMConfig:
     # model-id convention in llm/_internal/serve)
     lora_adapters: dict = dataclasses.field(default_factory=dict)
     # Startup budget override: how long a replica may legitimately sit in
-    # __init__ before serve may treat it as hung (read by the JAX
-    # package's serve builders; kept for field-for-field parity)
+    # __init__ before it is treated as hung. None = derive from the engine
+    # shape via compile_budget_s().
     startup_grace_s: Optional[float] = None
 
     @property
     def served_name(self) -> str:
         return self.name or self.model.model_id
+
+    def compile_budget_s(self) -> float:
+        """Worst-case replica start-up (``ray_tpu/llm/config.py:150-160``):
+        one program per prefill bucket and one decode program per KV pool,
+        doubled for sharded gangs, whose world must also rendezvous;
+        ``startup_grace_s`` when set. A gang's ranks must be ready within
+        it (``llm/gang.py``)."""
+        if self.startup_grace_s is not None:
+            return self.startup_grace_s
+        e = self.engine
+        programs = len(e.prefill_buckets) + max(len(e.seq_len_buckets), 1)
+        sharded = e.tensor_parallel_degree * e.sequence_parallel_degree > 1
+        return 120.0 + 30.0 * programs * (2 if sharded else 1)

@@ -1,4 +1,5 @@
-"""TorchEngine: continuous-batching LLM inference on one CUDA device.
+"""TorchEngine: continuous-batching LLM inference on one CUDA device (or, for
+a tp/sp config, on a gang of them).
 
 Counterpart of ``ray_tpu/llm/engine.py:JaxEngine``, with the same public
 surface and the same host logic:
@@ -33,8 +34,9 @@ its event has completed, and waits on one only when run-ahead is used up.
 by the port's ``train.save_state_dict`` or the JAX package's
 ``save_pytree``): it is read against a meta template of ``init_params``'
 shapes and copied to the device leaf by leaf, so the device holds one copy
-of the params. Tensor/sequence parallelism raises ``NotImplementedError``:
-it needs one process a card, and comes with the gang-serving slice.
+of the params. A tensor- or sequence-parallel config runs as a gang of rank
+processes, one a card, behind the same surface (``TorchEngine.__new__``,
+``llm/gang.py``).
 """
 
 from __future__ import annotations
@@ -71,11 +73,24 @@ from ray_tpu_torch.train.checkpoint import restore_state_dict
 
 logger = logging.getLogger(__name__)
 
-# JAX serves tp/sp as one process over the host's devices
-# (ray_tpu/llm/engine.py:197-204); the port runs one process a card, so
-# it comes with the gang-serving slice (llm/spmd.py, llm/gang.py)
-_GANG = ("is not ported yet: it needs one process a card, the gang-serving slice of the port "
-         "(llm/spmd.py, llm/gang.py)")
+def sample_tokens(logits: torch.Tensor, hot: list, ranks: torch.Tensor) -> torch.Tensor:
+    """Tokens [n] int32 from fp32 logits [n, V]: argmax for every row,
+    except rows in ``hot`` [(row, temp, top_k, generator)] (temp > 0),
+    which draw from the static top-K (``ranks`` = arange(K) on the device),
+    masked to ``top_k`` ranks and scaled by 1/temp (Gumbel-max with the
+    row's own generator)."""
+    toks = logits.argmax(dim=-1).to(torch.int32)
+    if not hot:
+        return toks
+    vals, idxs = torch.topk(logits, ranks.numel(), dim=-1)
+    for row, temp, top_k, gen in hot:
+        scaled = torch.where(ranks < top_k, vals[row] / max(temp, 1e-6), -float("inf"))
+        # Exp(1) noise, kept off 0 so a masked -inf rank never meets
+        # log(0) = -inf (that would give NaN, which argmax picks)
+        noise = torch.empty_like(scaled).exponential_(generator=gen).clamp_min_(1e-30)
+        choice = torch.argmax(scaled - noise.log()).view(1)
+        toks[row : row + 1].copy_(idxs[row].gather(0, choice))
+    return toks
 
 
 @dataclasses.dataclass
@@ -160,7 +175,8 @@ class DecodeGraph:
     graph reads: write the next tokens with ``tokens.copy_`` and read
     ``logits`` before the next replay (stream order does both). With
     ``loras`` the graph also reads the adapter stacks and ``adapter_ids``
-    [B], written in place the same way.
+    [B], written in place the same way. With a serving ``mesh`` it is this
+    rank's step (``decode_step(mesh=)``), its tp collectives captured too.
 
     The warm-up calls before the capture really run: they write K/V at the
     cache's positions ``length`` onwards, where no live entry is, and
@@ -170,20 +186,22 @@ class DecodeGraph:
     (``ops.launch_counts``) count kernels that ran. A capture or replay
     that fails raises."""
 
-    def __init__(self, params, cache, tokens, cfg, loras=None, adapter_ids=None):
+    def __init__(self, params, cache, tokens, cfg, loras=None, adapter_ids=None, mesh=None):
         device = tokens.device
         length = cache["length"].clone()
-        lora_kw = {} if loras is None else {"loras": loras, "adapter_ids": adapter_ids}
+        kw = {} if loras is None else {"loras": loras, "adapter_ids": adapter_ids}
+        if mesh is not None:
+            kw["mesh"] = mesh
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(2):
-                decode_step(params, cache, tokens, cfg, **lora_kw)
+                decode_step(params, cache, tokens, cfg, **kw)
         torch.cuda.current_stream(device).wait_stream(side)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.logits, _ = decode_step(params, cache, tokens, cfg, **lora_kw)
+            self.logits, _ = decode_step(params, cache, tokens, cfg, **kw)
         after = launch_counts()
         # kernel name -> launches of one replay
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -235,14 +253,26 @@ class TorchEngine:
     """On CUDA the decode graphs read ``params``, the LoRA stacks and each
     pool's cache at the addresses they had when the engine was built:
     update weights in place (``copy_``). Assigning ``params`` raises once a
-    graph exists."""
+    graph exists.
+
+    A config with ``tensor_parallel_degree`` x ``sequence_parallel_degree``
+    > 1 gets a ``llm/gang.py:GangEngine`` instead: the same public surface
+    over a gang of tp x sp rank processes on this host, one a card (gloo
+    ranks with ``device="cpu"``), where the JAX engine serves such a config
+    as one process over the host's devices (``ray_tpu/llm/engine.py:197-204``)."""
+
+    def __new__(cls, config: LLMConfig, device: Union[str, torch.device, None] = None):
+        ec = config.engine
+        if cls is TorchEngine and ec.tensor_parallel_degree * ec.sequence_parallel_degree > 1:
+            from ray_tpu_torch.llm.gang import GangLLMServer
+
+            return GangLLMServer(config, device=device).engine
+        return super().__new__(cls)
 
     def __init__(self, config: LLMConfig, device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
         self.config = config
         ec = config.engine
-        if ec.tensor_parallel_degree > 1 or ec.sequence_parallel_degree > 1:
-            raise NotImplementedError(f"tensor/sequence-parallel serving {_GANG}")
         self.tokenizer = get_tokenizer(config.model.tokenizer)
         self._build_model()
         # multi-LoRA: stacked adapters (slot 0 = base, all zero) and the
@@ -364,24 +394,7 @@ class TorchEngine:
         return torch.full((1,), v, dtype=torch.int32, device=self.device)
 
     def _sample(self, logits: torch.Tensor, hot: list) -> torch.Tensor:
-        """Tokens [n] int32 from fp32 logits [n, V]: argmax for every row,
-        except rows in ``hot`` [(row, temp, top_k, generator)] (temp > 0),
-        which draw from the static top-K, masked to ``top_k`` ranks and
-        scaled by 1/temp (Gumbel-max with the row's own generator)."""
-        toks = logits.argmax(dim=-1).to(torch.int32)
-        if not hot:
-            return toks
-        vals, idxs = torch.topk(logits, self._top_k_static, dim=-1)
-        for row, temp, top_k, gen in hot:
-            scaled = torch.where(
-                self._ranks < top_k, vals[row] / max(temp, 1e-6), -float("inf")
-            )
-            # Exp(1) noise, kept off 0 so a masked -inf rank never meets
-            # log(0) = -inf (that would give NaN, which argmax picks)
-            noise = torch.empty_like(scaled).exponential_(generator=gen).clamp_min_(1e-30)
-            choice = torch.argmax(scaled - noise.log()).view(1)
-            toks[row : row + 1].copy_(idxs[row].gather(0, choice))
-        return toks
+        return sample_tokens(logits, hot, self._ranks)
 
     def _capture(self, pool: _Pool) -> None:
         """On CUDA, the pool's decode step as one graph over its cache, which

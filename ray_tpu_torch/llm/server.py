@@ -2,7 +2,10 @@
 
 Counterpart of ``ray_tpu/llm/server.py``: the same request and reply
 shapes, hosted on the port's engine. A replica = one engine = one CUDA
-device. LoRA adapters load from in-memory weights or from a checkpoint
+device, or, for a tensor- or sequence-parallel config, a gang of rank
+processes, one a card (``TorchEngine`` gives a ``llm/gang.py:GangEngine``
+then; it serves no adapters). ``GangLLMServer``'s OpenAI methods are this
+class's over its gang. LoRA adapters load from in-memory weights or from a checkpoint
 path (the port's or the JAX package's format, ``train/checkpoint.py``); a
 request picks one with ``"_lora"`` and gets an OpenAI-style 404 for an
 adapter the replica does not serve.
@@ -23,19 +26,32 @@ def _sampling(body: dict) -> SamplingParams:
     """A request body's sampling fields. Besides the JAX server's
     max_tokens/temperature/top_k, ``ignore_eos`` passes through (an extra
     field vLLM's OpenAI server also takes), so a client can ask for a fixed
-    number of tokens."""
+    number of tokens, and ``seed`` as the JAX package's gang server takes it."""
     return SamplingParams(
         max_tokens=body.get("max_tokens", 64),
         temperature=body.get("temperature", 0.0),
         top_k=body.get("top_k", 50),
         ignore_eos=bool(body.get("ignore_eos", False)),
+        seed=body.get("seed"),
     )
 
 
+def _error_reply(e: BaseException) -> dict:
+    return {"error": {"message": str(e), "code": 400}}
+
+
 class LLMServer:
-    def __init__(self, llm_config: LLMConfig, device=None):
+    """``engine`` serves an engine built elsewhere (``GangLLMServer`` passes
+    its ``GangEngine``); the server shuts it down if an adapter fails to
+    load. ``reply_errors`` are the exceptions of submitting or waiting that
+    the OpenAI methods answer with a 400 reply instead of raising (the
+    gang's: a rank group that is down or shut down, a timed-out wait)."""
+
+    def __init__(self, llm_config: LLMConfig, device=None, *, engine=None,
+                 reply_errors: tuple = ()):
         self.llm_config = llm_config
-        self.engine = TorchEngine(llm_config, device=device)
+        self.reply_errors = reply_errors
+        self.engine = TorchEngine(llm_config, device=device) if engine is None else engine
         try:
             for name, weights in (llm_config.lora_adapters or {}).items():
                 self.load_lora(name, weights)
@@ -94,7 +110,10 @@ class LLMServer:
             return err
         prompt = body.get("prompt", "")
         params = _sampling(body)
-        out = self.engine.generate(prompt, sampling_params=params, lora=body.get("_lora"))
+        try:
+            out = self.engine.generate(prompt, sampling_params=params, lora=body.get("_lora"))
+        except self.reply_errors as e:
+            return _error_reply(e)
         return {
             "id": f"cmpl-{out.request_id}",
             "object": "text_completion",
@@ -121,7 +140,10 @@ class LLMServer:
         messages = body.get("messages", [])
         prompt = self._render_chat(messages)
         params = _sampling(body)
-        out = self.engine.generate(prompt, sampling_params=params, lora=body.get("_lora"))
+        try:
+            out = self.engine.generate(prompt, sampling_params=params, lora=body.get("_lora"))
+        except self.reply_errors as e:
+            return _error_reply(e)
         return {
             "id": f"chatcmpl-{out.request_id}",
             "object": "chat.completion",
@@ -151,7 +173,11 @@ class LLMServer:
             return
         prompt = body.get("prompt", "")
         params = _sampling(body)
-        req = self.engine.submit(prompt, sampling_params=params, lora=body.get("_lora"))
+        try:
+            req = self.engine.submit(prompt, sampling_params=params, lora=body.get("_lora"))
+        except self.reply_errors as e:
+            yield _error_reply(e)
+            return
         created = int(time.time())
         for inc in self.engine.drain(req):
             yield {
@@ -181,7 +207,11 @@ class LLMServer:
             return
         prompt = self._render_chat(body.get("messages", []))
         params = _sampling(body)
-        req = self.engine.submit(prompt, sampling_params=params, lora=body.get("_lora"))
+        try:
+            req = self.engine.submit(prompt, sampling_params=params, lora=body.get("_lora"))
+        except self.reply_errors as e:
+            yield _error_reply(e)
+            return
         created = int(time.time())
         first = True
         for inc in self.engine.drain(req):

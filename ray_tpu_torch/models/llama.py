@@ -13,7 +13,8 @@ CUDA flash-attention kernels for ``attention="flash"``/``"splash"`` on the
 card; per-layer remat, "full" or "dots"), the routed MoE FFN
 (``parallel/moe.py``) in training and, dropless, in serving, and the decode
 path (``init_kv_cache``, ``prefill``, ``decode_step``) with stacked
-multi-LoRA adapters (``init_lora_stack``).
+multi-LoRA adapters (``init_lora_stack``), on one device or, for gang
+serving (``llm/spmd.py``), on a serving mesh of tp, sp and dp.
 
 On a mesh (``parallel/mesh.py``) each rank runs the same functions on its
 shards, with explicit collectives where the JAX package has GSPMD insert
@@ -29,6 +30,7 @@ the layer stack as a GPipe pipeline over ``pp``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import torch
@@ -365,20 +367,30 @@ class _Plan:
     def tp_sum(self, y: torch.Tensor, name: str, logical: str) -> torch.Tensor:
         return pmesh.all_reduce(y, self.tp) if self.sharded(name, logical) else y
 
-    def local_kv(self, k, v, n_heads: int, cfg: LlamaConfig):
-        """The kv heads this rank's q heads read: all of k/v when the kv
-        heads are split over tp with the heads (or nothing is split), else
-        the slice (or, when a q head group straddles ranks, the per-head
-        selection) of the whole k/v."""
-        if k.shape[2] * (cfg.n_heads // cfg.n_kv_heads) == n_heads:
+    def local_kv(self, k, v, n_heads: int, cfg: LlamaConfig, dim: int = 2):
+        """The kv heads this rank's q heads read (``dim`` is the head dim:
+        2 for [B, T, KV, D], 1 for the cache's [B, KV, S, D]): all of k/v
+        when the kv heads are split over tp with the heads (or nothing is
+        split), else the slice (or, when a q head group straddles ranks, the
+        per-head selection) of the whole k/v."""
+        if k.shape[dim] * (cfg.n_heads // cfg.n_kv_heads) == n_heads:
             return k, v
         G = cfg.n_heads // cfg.n_kv_heads
         first = self.tp_rank * n_heads
         if n_heads % G == 0:
-            sl = slice(first // G, (first + n_heads) // G)
-            return k[:, :, sl], v[:, :, sl]
+            return (k.narrow(dim, first // G, n_heads // G),
+                    v.narrow(dim, first // G, n_heads // G))
         idx = (torch.arange(first, first + n_heads, device=k.device) // G)
-        return k.index_select(2, idx), v.index_select(2, idx)
+        return k.index_select(dim, idx), v.index_select(dim, idx)
+
+    def cut(self, x: torch.Tensor, name: str, logical: str, dim: int) -> torch.Tensor:
+        """This rank's part of ``x`` along ``dim``, which is whole and runs
+        along ``name``'s ``logical`` dim (a view: LoRA's B matrices cut to
+        the rank's heads)."""
+        if not self.sharded(name, logical):
+            return x
+        n = x.shape[dim] // self.sizes["tp"]
+        return x.narrow(dim, self.tp_rank * n, n)
 
     def attention(self, q, k, v, cfg: LlamaConfig):
         sp = self.sizes["sp"]
@@ -719,13 +731,20 @@ def init_kv_cache(
     batch_size: int,
     max_len: Optional[int] = None,
     device: Union[str, torch.device, None] = None,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """KV cache [L, B, KV_HEADS, S, D], head-major: each (batch, head)
     attention read is one contiguous S x D block. ``device`` is CUDA unless
-    the caller names another (``resolve_device``)."""
+    the caller names another (``resolve_device``). On a serving ``mesh``
+    this rank's part: the kv heads split over tp as wk/wv's are (when tp
+    divides them), else all of them (``ray_tpu/llm/spmd.py:128-137``)."""
     device = resolve_device(device)
     max_len = max_len or cfg.max_seq_len
-    shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len, cfg.head_dim)
+    kv = cfg.n_kv_heads
+    if mesh is not None:
+        (entry,) = pmesh.logical_pspec(mesh, "kv_heads", shape=(kv,))
+        kv //= math.prod(pmesh.mesh_sizes(mesh)[a] for a in pmesh.spec_axes(entry))
+    shape = (cfg.n_layers, batch_size, kv, max_len, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -797,9 +816,22 @@ def _cache_write(cache_l, new, plan, bi, ki):
 _MOE_KEYS = ("moe_router", "moe_w_gate", "moe_w_up", "moe_w_down")
 
 
+def _serving_plan(cfg: LlamaConfig, mesh) -> Optional[_Plan]:
+    """The decode path's plan on a serving mesh: tp splits the weights and
+    the cache; sp and dp hold copies (no serving param or cache dim maps to
+    them, and the JAX ``_decode_forward`` constrains no activation: each sp
+    or dp rank computes what its tp group computes)."""
+    if mesh is None:
+        return None
+    sizes = pmesh.mesh_sizes(mesh)
+    if any(sizes[a] > 1 for a in ("fsdp", "ep", "pp")):
+        raise ValueError(f"a serving mesh has tp, sp and dp axes only, got {sizes}")
+    return _Plan(cfg, mesh)
+
+
 def _decode_forward(
     params, cache, tokens, positions, cfg: LlamaConfig, valid=None,
-    loras=None, adapter_ids=None, with_logits: bool = True, logits_at=None,
+    loras=None, adapter_ids=None, with_logits: bool = True, logits_at=None, mesh=None,
 ):
     """Shared prefill/decode body. tokens, positions, valid: [B, T].
 
@@ -812,21 +844,35 @@ def _decode_forward(
     that position per sequence ([B, 1, V]); ``with_logits=False`` skips the
     head (mid-chunk prefill). ``loras`` (``init_lora_stack``) and
     ``adapter_ids`` [B] (0 = the base model) add each row's adapter delta to
-    q and v before RoPE."""
+    q and v before RoPE.
+
+    With a serving ``mesh`` (tp, sp, dp) every rank calls it on its shards
+    (``_Plan``, the train step's plan): params from ``init_params(mesh=)``,
+    the cache from ``init_kv_cache(mesh=)``, the LoRA stacks whole (their B
+    matrices are cut to the rank's heads here). wq/wk/wv give the rank's
+    heads, wo its rows and a tp all-reduce follows; w_gate/w_up (and the
+    MoE experts' gate/up) its mlp columns, w_down its rows, an all-reduce;
+    the embedding is vocab-parallel, and the logits are all-gathered over
+    tp, so every rank returns the same [B, V] fp32 logits (the JAX
+    program's replicated out-sharding)."""
+    plan = _serving_plan(cfg, mesh)
     B, T = tokens.shape
     S = cache["k"].shape[3]
     dev = cache["k"].device
     if loras is not None:
         adapter_ids = torch.as_tensor(adapter_ids, device=dev).long()
-    KV, G, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    H, KV, D = params["wq"].shape[2], cache["k"].shape[2], cfg.head_dim  # this rank's heads
     e = cfg.d_model
     eps, fused = cfg.rms_eps, cfg.fused_rmsnorm
     scale = D**-0.5
 
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+    def tp_sum(y, name, logical):
+        return y if plan is None else plan.tp_sum(y, name, logical)
+
+    x = _embed_lookup(params["embed"], tokens, cfg, plan)
     slot = torch.arange(S, device=dev)
     seq_mask = slot[None, None, :] <= positions[:, :, None]  # [B, T, S]
-    plan = _write_plan(positions, valid, S)
+    wplan = _write_plan(positions, valid, S)
     bi = torch.arange(B, device=dev)[:, None, None]
     ki = torch.arange(KV, device=dev)[None, :, None]
     tables = _rope_tables(positions, D, cfg.rope_theta)
@@ -844,31 +890,39 @@ def _decode_forward(
 
     h = _rmsnorm(x, params["attn_norm"][0], eps, fused)
     for l in range(cfg.n_layers):
-        q = (h @ params["wq"][l].reshape(e, -1)).view(B, T, cfg.n_heads, D)
+        q = (h @ params["wq"][l].reshape(e, -1)).view(B, T, H, D)
         k = (h @ params["wk"][l].reshape(e, -1)).view(B, T, KV, D)
         v = (h @ params["wv"][l].reshape(e, -1)).view(B, T, KV, D)
         if loras is not None:
-            q = q + _lora_delta(h, loras["wq_a"][l], loras["wq_b"][l], adapter_ids)
-            v = v + _lora_delta(h, loras["wv_a"][l], loras["wv_b"][l], adapter_ids)
+            qb, vb = loras["wq_b"][l], loras["wv_b"][l]
+            if plan is not None:
+                qb, vb = plan.cut(qb, "wq", "heads", 2), plan.cut(vb, "wv", "kv_heads", 2)
+            q = q + _lora_delta(h, loras["wq_a"][l], qb, adapter_ids)
+            v = v + _lora_delta(h, loras["wv_a"][l], vb, adapter_ids)
         q = _rope(q, positions, cfg.rope_theta, tables)
         k = _rope(k, positions, cfg.rope_theta, tables)
         ck, cv = cache["k"][l], cache["v"][l]  # views: writes land in the cache
-        _cache_write(ck, k, plan, bi, ki)
-        _cache_write(cv, v, plan, bi, ki)
+        _cache_write(ck, k, wplan, bi, ki)
+        _cache_write(cv, v, wplan, bi, ki)
+        if plan is not None:  # the kv heads this rank's q heads read
+            ck, cv = plan.local_kv(ck, cv, H, cfg, dim=1)
 
         # GQA without repeating K/V: the group axis folds into the query
-        qg = q.view(B, T, KV, G, D)
+        n_kv = ck.shape[1]
+        qg = q.view(B, T, n_kv, H // n_kv, D)
         s = torch.einsum("btkgd,bksd->bktgs", qg, ck) * scale
         s = s.masked_fill(~seq_mask[:, None, :, None, :], -1e30)
         w = torch.softmax(s.float(), dim=-1).to(x.dtype)
-        attn = torch.einsum("bktgs,bksd->btkgd", w, cv).reshape(B, T, cfg.n_heads * D)
-        x, h = add_norm(x, attn @ params["wo"][l].reshape(-1, e), params["mlp_norm"][l])
+        attn = torch.einsum("bktgs,bksd->btkgd", w, cv).reshape(B, T, H * D)
+        o = tp_sum(attn @ params["wo"][l].reshape(-1, e), "wo", "heads")
+        x, h = add_norm(x, o, params["mlp_norm"][l])
 
         if cfg.moe_experts:
             delta = _moe_decode_ffn({k: params[k][l] for k in _MOE_KEYS}, h, cfg)
+            delta = tp_sum(delta, "moe_w_down", "mlp")
         else:
             ff = F.silu(h @ params["w_gate"][l]) * (h @ params["w_up"][l])
-            delta = ff @ params["w_down"][l]
+            delta = tp_sum(ff @ params["w_down"][l], "w_down", "mlp")
         if l + 1 < cfg.n_layers:
             x, h = add_norm(x, delta, params["attn_norm"][l + 1])
 
@@ -882,6 +936,7 @@ def _decode_forward(
         x = _rmsnorm(x, params["final_norm"], eps, fused)
     else:
         _, x = add_norm(x, delta, params["final_norm"])
+    name = "embed" if cfg.tie_embeddings else "unembed"
     unembed = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     # The JAX package asks XLA for fp32 logits from bf16 operands
     # (preferred_element_type). A bf16 matmul here accumulates in fp32 too,
@@ -890,12 +945,14 @@ def _decode_forward(
     # instead would copy the [e, V] unembed (0.8 GB at 128k vocab) to fp32
     # on every step. In fp32 configs the two are the same.
     logits = (x @ unembed.to(x.dtype)).float()
+    if plan is not None and plan.sharded(name, "vocab"):
+        logits = pmesh.all_gather(logits, plan.tp, -1)
     return logits, cache
 
 
 def prefill(
     params, cache, tokens, cfg: LlamaConfig, lengths=None,
-    loras=None, adapter_ids=None, start_pos=None, with_logits: bool = True,
+    loras=None, adapter_ids=None, start_pos=None, with_logits: bool = True, mesh=None,
 ):
     """Process a prompt batch. tokens: [B, T] (right-padded); lengths: [B].
     Returns (last-token logits [B, vocab] or None, cache), the cache updated
@@ -905,7 +962,8 @@ def prefill(
     prefill of prefix caching and chunked admission (the cache already
     holds positions 0..start_pos-1). ``with_logits=False`` skips the LM head
     for mid-chunk prefills. Afterwards ``cache["length"] = start_pos +
-    lengths``."""
+    lengths``. ``mesh``: this rank's shards on a serving mesh
+    (``_decode_forward``)."""
     dev = cache["k"].device
     tokens = torch.as_tensor(tokens, device=dev)
     B, T = tokens.shape
@@ -923,7 +981,7 @@ def prefill(
     logits, cache = _decode_forward(
         params, cache, tokens, positions, cfg, valid,
         loras=loras, adapter_ids=adapter_ids, with_logits=with_logits,
-        logits_at=(lengths - 1) if with_logits else None,
+        logits_at=(lengths - 1) if with_logits else None, mesh=mesh,
     )
     cache["length"].copy_(start_pos + lengths)
     if not with_logits:
@@ -931,14 +989,16 @@ def prefill(
     return logits[:, 0], cache
 
 
-def decode_step(params, cache, tokens, cfg: LlamaConfig, loras=None, adapter_ids=None):
+def decode_step(params, cache, tokens, cfg: LlamaConfig, loras=None, adapter_ids=None,
+                mesh=None):
     """One decode step. tokens: [B] or [B, 1] -> (logits [B, vocab], cache),
-    the cache updated in place."""
+    the cache updated in place. ``mesh``: this rank's shards on a serving
+    mesh (``_decode_forward``)."""
     tokens = torch.as_tensor(tokens, device=cache["k"].device)
     if tokens.dim() == 1:
         tokens = tokens[:, None]
     positions = cache["length"][:, None].clone()
     logits, cache = _decode_forward(
-        params, cache, tokens, positions, cfg, loras=loras, adapter_ids=adapter_ids,
+        params, cache, tokens, positions, cfg, loras=loras, adapter_ids=adapter_ids, mesh=mesh,
     )
     return logits[:, -1], cache

@@ -26,6 +26,11 @@ context (CUDA forbids ``fork``), one process per rank:
 - *Results* come back over one pipe per rank, read by ``poll``, which waits
   on the pipes and the processes' sentinels together, so a rank that dies
   is seen as soon as its pipe is drained.
+- *Long-lived ranks* (``start_loop``, the serving gang of ``llm/gang.py``)
+  take the same environment and rendezvous and also get an inbound pipe:
+  ``send(rank, msg)`` writes to it, and the rank's loop reads its messages
+  in the order they were sent. One thread sending to every rank in turn
+  gives every rank the same sequence.
 """
 
 from __future__ import annotations
@@ -95,22 +100,30 @@ def _environ(env: dict):
                 os.environ[k] = v
 
 
+def _join(backend: str) -> tuple[int, torch.device]:
+    """Join this rank's process group (NCCL on its card, or gloo): (rank,
+    device)."""
+    env = os.environ
+    rank = int(env["RAY_TPU_RANK"])
+    device = torch.device("cpu")
+    if backend == "nccl":
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    host, port = env["RAY_TPU_COORDINATOR"].rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), is_master=False, timeout=_RENDEZVOUS_TIMEOUT)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=int(env["RAY_TPU_WORLD_SIZE"]),
+                            timeout=_RENDEZVOUS_TIMEOUT)
+    return rank, device
+
+
 def _rank_main(backend: str, context_kwargs: dict, storage_dir: str,
                checkpoint_path: Optional[str], blob: bytes, conn, spawned_at: float) -> None:
     """A rank process's body: rendezvous, session, train loop. Sends
     ``started``, then the loop's results, then ``done`` or ``error``."""
-    env = os.environ
-    rank = int(env["RAY_TPU_RANK"])
+    rank = int(os.environ["RAY_TPU_RANK"])
     try:
-        device = torch.device("cpu")
-        if backend == "nccl":
-            device = torch.device("cuda", 0)
-            torch.cuda.set_device(device)
-        host, port = env["RAY_TPU_COORDINATOR"].rsplit(":", 1)
-        store = dist.TCPStore(host, int(port), is_master=False, timeout=_RENDEZVOUS_TIMEOUT)
-        dist.init_process_group(backend, store=store, rank=rank,
-                                world_size=int(env["RAY_TPU_WORLD_SIZE"]),
-                                timeout=_RENDEZVOUS_TIMEOUT)
+        rank, device = _join(backend)
         train_fn, config, shards = pickle.loads(blob)
         chk = Checkpoint(checkpoint_path) if checkpoint_path else None
         os.makedirs(storage_dir, exist_ok=True)
@@ -132,6 +145,26 @@ def _rank_main(backend: str, context_kwargs: dict, storage_dir: str,
     conn.close()
 
 
+def _loop_main(backend: str, blob: bytes, conn, inbox, spawned_at: float) -> None:
+    """A long-lived rank's body: rendezvous, then ``loop_fn(config, conn,
+    inbox, device)``, which reads its messages from ``inbox`` and writes
+    its replies to ``conn``. Sends ``started``, then ``done`` or ``error``."""
+    rank = int(os.environ["RAY_TPU_RANK"])
+    try:
+        rank, device = _join(backend)
+        loop_fn, config = pickle.loads(blob)
+        conn.send({"kind": "started", "rank": rank, "startup_s": time.time() - spawned_at})
+        loop_fn(config, conn, inbox, device)
+    except BaseException:
+        conn.send({"kind": "error", "rank": rank, "error": traceback.format_exc()})
+        sys.exit(1)  # the finally below still runs
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    conn.send({"kind": "done", "rank": rank})
+    conn.close()
+
+
 class WorkerGroup:
     """Spawns, polls and reaps the rank processes of one attempt."""
 
@@ -143,6 +176,7 @@ class WorkerGroup:
         self.num_workers = scaling.num_workers
         self.procs: list = []
         self._conns: dict[int, Any] = {}
+        self._inboxes: dict[int, Any] = {}
         self._eof: set[int] = set()
         self._store = None
 
@@ -150,7 +184,28 @@ class WorkerGroup:
               latest_checkpoint_path: Optional[str], shards: list[dict],
               num_workers: Optional[int] = None) -> None:
         """Spawn the ranks; ``shards[r]`` is rank r's {name: dataset shard}."""
-        n = num_workers or self.scaling.num_workers
+        def args(rank, n, backend, coordinator, send, inbox):
+            context = dict(world_size=n, world_rank=rank, local_rank=rank, local_world_size=n,
+                           node_rank=0, experiment_name=self.experiment_name,
+                           trial_id=self.trial_id, coordinator_address=coordinator)
+            blob = pickle.dumps((train_fn, config, shards[rank]))
+            return (backend, context, storage_dir, latest_checkpoint_path, blob, send,
+                    time.time())
+
+        self._spawn(num_workers or self.scaling.num_workers, _rank_main, args, inbound=False)
+
+    def start_loop(self, loop_fn, config, num_workers: Optional[int] = None) -> None:
+        """Spawn ranks that each run ``loop_fn(config, conn, inbox, device)``
+        (a module-level function: it travels by name) after the rendezvous,
+        with an inbound pipe that ``send`` writes to."""
+        blob = pickle.dumps((loop_fn, config))
+
+        def args(rank, n, backend, coordinator, send, inbox):
+            return (backend, blob, send, inbox, time.time())
+
+        self._spawn(num_workers or self.scaling.num_workers, _loop_main, args, inbound=True)
+
+    def _spawn(self, n: int, target, args, inbound: bool) -> None:
         self.num_workers = n
         gpu_ids = gpu_ids_per_rank(self.scaling, n)
         backend = "nccl" if gpu_ids else "gloo"
@@ -166,21 +221,25 @@ class WorkerGroup:
             elif "OMP_NUM_THREADS" not in os.environ:
                 # CPU ranks share this host's cores (torchrun's default too)
                 env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // n))
-            context = dict(world_size=n, world_rank=rank, local_rank=rank, local_world_size=n,
-                           node_rank=0, experiment_name=self.experiment_name,
-                           trial_id=self.trial_id, coordinator_address=coordinator)
-            blob = pickle.dumps((train_fn, config, shards[rank]))
             recv, send = mp.Pipe(duplex=False)
-            p = mp.Process(
-                target=_rank_main, name=f"{self.experiment_name}-rank-{rank}",
-                args=(backend, context, storage_dir, latest_checkpoint_path, blob, send,
-                      time.time()),
-            )
+            inbox = outbox = None
+            if inbound:
+                inbox, outbox = mp.Pipe(duplex=False)
+            p = mp.Process(target=target, name=f"{self.experiment_name}-rank-{rank}",
+                           args=args(rank, n, backend, coordinator, send, inbox))
             with _environ(env):
                 p.start()
             send.close()  # the child holds the write end
+            if inbox is not None:
+                inbox.close()  # ... and the read end of its inbox
+                self._inboxes[rank] = outbox
             self.procs.append(p)
             self._conns[rank] = recv
+
+    def send(self, rank: int, msg) -> None:
+        """Write ``msg`` to the inbox of a rank from ``start_loop``; raises
+        ``OSError`` when the rank has gone."""
+        self._inboxes[rank].send(msg)
 
     def poll(self, timeout: float) -> tuple[list[dict], dict[int, int]]:
         """Wait up to ``timeout`` for a message or an exit. Returns the
@@ -219,9 +278,10 @@ class WorkerGroup:
             if p.is_alive():
                 p.kill()
                 p.join()
-        for conn in self._conns.values():
+        for conn in list(self._conns.values()) + list(self._inboxes.values()):
             conn.close()
         self._conns = {}
+        self._inboxes = {}
         self._store = None
 
 

@@ -266,15 +266,22 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    """What the port still lacks: tensor/sequence-parallel serving, which
-    needs one process a card (the gang-serving slice). Checkpoint loading
-    and LoRA adapters from a path came with the Train layer
+    """What the port still lacks: LoRA adapters on a tensor/sequence-parallel
+    engine, a gang of rank processes (the JAX package's GangLLMServer has
+    none either). Tensor/sequence-parallel serving itself came with the
+    gang-serving slice (tests/test_torch_gang.py); checkpoint loading and
+    LoRA adapters from a path with the Train layer
     (tests/test_torch_checkpoint.py)."""
     small = dict(max_seq_len=32, prefill_buckets=(32,))
     for kw in ({"tensor_parallel_degree": 2}, {"sequence_parallel_degree": 2}):
-        with pytest.raises(NotImplementedError,
-                           match="tensor/sequence-parallel serving.*gang-serving slice"):
-            TorchEngine(LLMConfig(engine=EngineConfig(**small, **kw)), device="cpu")
+        eng = TorchEngine(LLMConfig(engine=EngineConfig(**small, **kw)), device="cpu")
+        try:
+            with pytest.raises(NotImplementedError, match="LoRA adapters on a tensor/seq"):
+                eng.add_lora("a", {})
+            with pytest.raises(NotImplementedError, match="LoRA adapters on a tensor/seq"):
+                eng.submit("hi", lora="a")
+        finally:
+            eng.shutdown()
 
 
 # ---- import boundary ---------------------------------------------------------
@@ -296,6 +303,8 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     files = _port_files()
     assert len(files) > 10
     assert REPO / "ray_tpu_torch" / "ops" / "quant.py" in files
+    assert REPO / "ray_tpu_torch" / "llm" / "spmd.py" in files
+    assert REPO / "ray_tpu_torch" / "llm" / "gang.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
