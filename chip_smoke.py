@@ -2,8 +2,8 @@
 """On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path
 (dense, MoE and multi-LoRA; one process, and a gang of rank processes), its
 training path (dense and MoE, remat "full" and "dots"), its int8 weight
-path, the entry() twin, and the Train layer's train -> checkpoint -> serve
-path.
+path, the entry() twin, the Train layer's train -> checkpoint -> serve
+path, and the RL stack (ray_tpu_torch.rllib).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -122,6 +122,24 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 in the backward: the loss stays within the limit, the grad
                 norm must not), step ms per mesh, the flash launches
                 counted in the rank.
+ 17. rllib   — ray_tpu_torch.rllib, the learner on the card, env runners on
+                the CPU: PPO on CartPole-v1 through Algorithm.train at
+                tests/test_rllib.py:48-69's settings (8 envs x 128 steps,
+                minibatch 256, 8 epochs, lr 1e-3, hidden (64, 64), 25
+                iterations; the return must rise by more than 20, the JAX
+                test's limit) and on MiniBreakout-v0 (conv torso, 5
+                iterations, finite losses): env steps/s, learner ms per
+                iteration and per minibatch update (CUDA events), returns;
+                the learner's parameters and Adam moments on cuda; each
+                algorithm's update (PPO vector and conv, DQN, IMPALA, APPO,
+                BC, MARWIL, SAC) 3 times on the card and on the CPU from the
+                same weights and batches (fp32, TF32 off), the losses within
+                rtol 1e-5 and the parameters within 1e-5 (the CPU tests'
+                limits), a broken control (the card's batches with actions
+                shifted one row) that must fail them, and the update's ms on
+                both; one PPO update's kernels and the device's busy share
+                (profiler). Every kernel counter set to 0 before and read
+                after: all 0 (no TPU kernel lies on the RL path).
 Then the kernels summary line, the nvidia-smi line, and, last,
 {"ok": true, "device": {...}}.
 
@@ -1765,6 +1783,52 @@ def phase_parallel(torch, card: str) -> dict:
     return out
 
 
+def phase_rllib(torch, card: str) -> dict:
+    """RLlib on the card: PPO's training loop (CartPole-v1 and
+    MiniBreakout-v0) through ``Algorithm.train``, and every algorithm's
+    update on the card against the same update on the CPU, with a broken
+    control; the kernel counters set to 0 before and read after (the RL
+    path runs no kernel of ops/csrc)."""
+    from ray_tpu_torch.ops import add_launch_counts, launch_counts
+    from ray_tpu_torch.tools import rllib_bench as rb
+
+    add_launch_counts({k: -v for k, v in launch_counts().items()})
+    cartpole = rb.ppo_train("CartPole-v1", None, 25)
+    breakout = rb.ppo_train("MiniBreakout-v0", None, 5)
+    updates = {}
+    for name in rb.ALGOS:
+        run, cpu, ctrl = (rb.update_runs(name, None), rb.update_runs(name, "cpu"),
+                          rb.update_runs(name, None, control=True))
+        updates[name] = {**rb.agreement(run, cpu), "update_ms": run["update_ms"],
+                         "cpu_update_ms": cpu["update_ms"],
+                         "control": rb.agreement(ctrl, cpu)}
+    profile = rb.profile_update()
+    launches = launch_counts()
+    out = {"phase": "rllib", "card": card, "ppo_cartpole": cartpole, "ppo_breakout": breakout,
+           "updates": updates,
+           "limits": {"loss_rtol": rb.LOSS_RTOL, "loss_atol": rb.LOSS_ATOL,
+                      "param_atol": rb.PARAM_ATOL},
+           "profile_ppo_update": profile, "launches": launches}
+    emit(out)
+    first, last = cartpole["return_first"], cartpole["return_last"]
+    if first is None or last is None or not last > first + 20:
+        raise AssertionError(f"rllib: PPO CartPole did not improve by > 20: {first} -> {last}")
+    for run in (cartpole, breakout):
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"rllib: non-finite loss on {run['env']}: {run['losses']}")
+        if run["learner_tensors_on"] != ["cuda"]:
+            raise AssertionError(f"rllib: learner tensors on {run['learner_tensors_on']}")
+    bad = [n for n, u in updates.items() if not u["ok"]]
+    if bad:
+        raise AssertionError(f"rllib: card updates outside the CPU limits: {bad}")
+    passed = [n for n, u in updates.items() if u["control"]["ok"]]
+    if passed:
+        raise AssertionError(f"rllib: the shifted-actions control passed the limits: {passed}")
+    if any(launches.values()):
+        raise AssertionError(f"rllib: kernel launches on the RL path: {launches}")
+    return out
+
+
 def phase_train_serve(torch, card: str, train: dict) -> dict:
     """Train -> checkpoint -> serve at the bench width, through the entry
     points a user calls.
@@ -2014,6 +2078,7 @@ def main() -> int:
     train_serve = timed_phase("train_serve", lambda torch, card: phase_train_serve(torch, card, train))
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
+    rllib = timed_phase("rllib", phase_rllib)
     emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
@@ -2057,7 +2122,8 @@ def main() -> int:
                              "gang_serve": gang_serve["rmsnorm_launches"],
                              "moe_serve": moe_serve["rmsnorm_launches"],
                              "lora_serve": lora_serve["rmsnorm_launches"],
-                             "train_serve": train_serve["rmsnorm_launches"]},
+                             "train_serve": train_serve["rmsnorm_launches"],
+                             "rllib": rllib["launches"]["rmsnorm"]},
         "max_abs_err": k["max_abs_err"],
         "ms": decode["kernel_us"] / 1e3,
         "plain_ms": decode["plain_us"] / 1e3,
@@ -2082,7 +2148,8 @@ def main() -> int:
                              # the trainer's rank process, its own counters
                              "train_serve": train_serve["launches"][name],
                              # the sweep's first step on each mesh, counted in the rank
-                             "parallel": parallel["launches"][key]},
+                             "parallel": parallel["launches"][key],
+                             "rllib": rllib["launches"][name]},
         "max_abs_err": k["attention"]["max_abs_err"],
         "ms": bench[key]["kernel_us"] / 1e3,
         "plain_ms": bench[key]["plain_us"] / 1e3,
@@ -2103,6 +2170,7 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/quant.cu",
         "replaces": replaces,
         "launches": quant["launches"][name],
+        "launches_by_path": {"quant": quant["launches"][name], "rllib": rllib["launches"][name]},
         "max_abs_err": err,
         "ms": mlp_up[key]["kernel_us"] / 1e3,
         "plain_ms": mlp_up[key]["plain_us"] / 1e3,

@@ -305,6 +305,7 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert REPO / "ray_tpu_torch" / "ops" / "quant.py" in files
     assert REPO / "ray_tpu_torch" / "llm" / "spmd.py" in files
     assert REPO / "ray_tpu_torch" / "llm" / "gang.py" in files
+    assert REPO / "ray_tpu_torch" / "rllib" / "core" / "learner.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
