@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port (ray_tpu_torch): its serving path
-(dense, MoE and multi-LoRA; one process, and a gang of rank processes), its
+(dense, MoE and multi-LoRA; one process, a gang of rank processes, prefill
+and decode disaggregated, and offline batch inference), its
 training path (dense and MoE, remat "full" and "dots"), its int8 weight
 path, the entry() twin, the Train layer's train -> checkpoint -> serve
 path, and the RL stack (ray_tpu_torch.rllib).
@@ -50,7 +51,19 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 TTFT, rank start-up and plan round trip beside the serve
                 phase's; a rank killed mid-request and its replay equal to
                 an uninterrupted run.
-  5b. decode_graph — the engine's DecodeGraph at full 3B width and depth
+  5b. disagg  — prefill/decode disaggregation (llm/disagg.py) on the serve
+                model with well-conditioned weights: a PrefillWorker and a
+                DecodeWorker in one process behind a DisaggRouter, the 16
+                prompts one at a time, 32 tokens: each equal to
+                TorchEngine.generate's; every decode step a graph replay;
+                RMSNorm launches (2L+1) a prefill and a step; a handoff one
+                position short must change the tokens; the handoff's bytes,
+                its ms each way, TTFT through the router, decode tok/s.
+  5c. batch   — build_llm_processor (llm/batch.py) over 32 prompts in blocks
+                of 16, greedy, 32 tokens: each row's text equal to the
+                processor engine's generate; graph replays and RMSNorm
+                launches as the serve phase derives them; rows/s, tok/s.
+  5d. decode_graph — the engine's DecodeGraph at full 3B width and depth
                 (well-conditioned weights, 16 rows at 96 positions): 8
                 graphed steps against 8 eager decode_steps on cloned caches
                 (greedy tokens equal; the logits' max difference reported),
@@ -91,6 +104,14 @@ Phases, one JSON line each; any failing phase exits non-zero:
  12. lora_serve — llama3.2-3b with two adapters loaded by load_lora: a
                 mixed batch of 16 equal to each request's sequential run,
                 base requests equal to the serve phase's tokens.
+ 12a. gang_lora — the gang_serve phase's one-rank gang with max_loras=2
+                (prefill buckets from 128: one chunk a prompt, padded as
+                lora_serve pads it), LLMServer over it, lora_serve's two
+                adapters loaded: its mixed batch of 16 equal token for token;
+                RMSNorm launches counted in the rank; a rank killed mid
+                adapter request, the gang rebuilt with its adapters and the
+                replay equal; after unload_lora, base requests equal to the
+                serve phase's tokens.
  13. train_dots — the train phase's configuration under remat "dots", in
                 turns with "full" (full, dots, dots, full).
  14. graft_entry — ray_tpu_torch.graft_entry.entry() in bf16 and fp32 on
@@ -1501,6 +1522,7 @@ def phase_lora_serve(torch, card: str, serve: dict) -> dict:
     try:
         gen = torch.Generator(device="cuda").manual_seed(9)
         mcfg = eng.model_cfg
+        adapter_weights = {}  # host copies, for the gang_lora phase
         for name in ("a", "b"):
             # A: N(0, 1) / sqrt(d_model); B: N(0, 1) x 4 / sqrt(rank): deltas
             # of O(4) on q and v, whose entries are O(10) under this init
@@ -1508,6 +1530,7 @@ def phase_lora_serve(torch, card: str, serve: dict) -> dict:
                        * (mcfg.d_model**-0.5 if k.endswith("_a") else 4 * cfg.engine.lora_rank**-0.5)
                        for k, v in eng.loras.items()}
             server.load_lora(name, weights)
+            adapter_weights[name] = {k: v.cpu() for k, v in weights.items()}
         if server.list_loras() != ["a", "b"]:
             raise AssertionError(f"lora_serve: loaded {server.list_loras()}")
         server.completions({"prompt": "warm up " * 12, "max_tokens": 16, "ignore_eos": True,
@@ -1559,6 +1582,295 @@ def phase_lora_serve(torch, card: str, serve: dict) -> dict:
         raise AssertionError("lora_serve: base requests differ from the no-LoRA engine's tokens")
     if adapted_differ == 0:
         raise AssertionError("lora_serve: no adapter changed any request's tokens")
+    # for the gang_lora phase: the adapters, the requests and their tokens
+    return {**out, "adapter_weights": adapter_weights, "bodies": bodies, "mixed": mixed}
+
+
+def _copy_params(torch, dst: dict, src: dict) -> None:
+    """``src`` into ``dst`` leaf by leaf, in place (a captured decode graph
+    reads ``dst``'s tensors where they are)."""
+    with torch.no_grad():
+        for name, t in dst.items():
+            t.copy_(src[name])
+
+
+def phase_disagg(torch, card: str) -> dict:
+    """Prefill/decode disaggregation (llm/disagg.py) at llama3.2-3b's full
+    width and depth, fused RMSNorm, max_seq_len 1024, the serve phase's
+    prefill buckets: a PrefillWorker and a DecodeWorker in one process
+    behind a DisaggRouter, and TorchEngines of the same config for the
+    reference, all holding the same well-conditioned weights
+    (_conditioned_params, copied in place).
+
+    The serve phase's 16 prompts go one at a time through the router, 32
+    tokens each, greedy with EOS honoured in both paths. Limits: each
+    request's tokens equal TorchEngine.generate's with the pool sized to
+    one slot (max_num_seqs 1), which sums in the disaggregated path's order
+    (a B = 1 decode graph; the same 128-wide prefill); every decode step a
+    graph replay; RMSNorm launches, set to 0 just before the 16 requests,
+    equal (2L+1) per prefill and per decode step. (The 16-slot engine's
+    B = 16 GEMMs round otherwise in bf16, so its tokens part from these
+    after a few positions.) A broken control, one
+    request decoded from its handoff with ``length`` one short, must give
+    other tokens. Reported: the handoff's bytes, its ms device -> host (in
+    the prefill worker) and host -> device (in the decode worker), TTFT
+    through the router (the call to the prefill's return), decode tok/s."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import (DecodeWorker, DisaggRouter, PrefillWorker, SamplingParams,
+                                   TorchEngine)
+    from ray_tpu_torch.ops import rmsnorm
+
+    cfg = _serve_config({})
+    pw, dw = PrefillWorker(cfg), DecodeWorker(cfg)
+    cond = _conditioned_params(torch, pw.model_cfg, seed=13)
+    for params in (pw.params, dw.params):
+        _copy_params(torch, params, cond)
+    prompts = _serve_prompts()
+    sp = SamplingParams(max_tokens=32, temperature=0.0)
+    eng = TorchEngine(dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, max_num_seqs=1)))
+    try:
+        _copy_params(torch, eng.params, cond)
+        want = [eng.generate(p, sampling_params=sp).token_ids for p in prompts]
+    finally:
+        eng.shutdown()
+    del eng, cond
+    gc_collect(torch)
+
+    got, ttft, to_host, to_device, decode_tps = [], [], [], [], []
+    prefill, decode = pw.prefill, dw.decode
+
+    def observed_prefill(prompt):
+        handoff = prefill(prompt)
+        ttft.append((time.perf_counter() - t0) * 1e3)
+        to_host.append(pw.last["to_host_ms"])
+        return handoff
+
+    def observed_decode(handoff, max_tokens):
+        out = decode(handoff, max_tokens)
+        got.append(out["token_ids"])
+        to_device.append(dw.last["to_device_ms"])
+        decode_tps.append(dw.last["decode_steps"] / (dw.last["decode_ms"] / 1e3))
+        return out
+
+    router = DisaggRouter(pw, dw)
+    router({"prompt": "warm up " * 12, "max_tokens": 8})  # allocator, cuBLAS handles
+    pw.prefill, dw.decode = observed_prefill, observed_decode
+    try:
+        counts0 = dict(dw.counts)
+        rmsnorm.launches = 0  # counts from here on are the path's
+        wall0 = time.perf_counter()
+        for p in prompts:
+            t0 = time.perf_counter()
+            reply = router({"prompt": p, "max_tokens": 32})
+            if reply["num_tokens"] != len(got[-1]):
+                raise AssertionError(f"disagg: the router's reply {reply} for {got[-1]}")
+        wall = time.perf_counter() - wall0
+        launches = rmsnorm.launches
+    finally:
+        del pw.prefill, dw.decode  # back to the classes' methods
+    steps = {k: dw.counts[k] - counts0[k] for k in ("decode_steps", "decode_graph_replays")}
+    expected = (2 * L_3B + 1) * (len(prompts) + steps["decode_steps"])
+    handoff = pw.prefill(prompts[0])
+    control = dw.decode(dict(handoff, length=handoff["length"] - 1), 32)["token_ids"]
+    equal = sum(g == w for g, w in zip(got, want))
+    out = {
+        "phase": "disagg", "card": card, "model": "llama3.2-3b", "requests": len(prompts),
+        "max_tokens": 32, "weights": "conditioned (seed 13)",
+        "handoff_bytes": pw.last["handoff_bytes"], "handoff_dtype": str(handoff["k"].dtype),
+        "handoff_pinned": bool(handoff["k"].is_pinned()),
+        "prefill_bucket": pw.last["bucket"],
+        "to_host_ms_p50": float(np.percentile(to_host, 50)),
+        "to_device_ms_p50": float(np.percentile(to_device, 50)),
+        "to_host_gb_per_s": pw.last["handoff_bytes"] / (np.percentile(to_host, 50) / 1e3) / 1e9,
+        "to_device_gb_per_s": (pw.last["handoff_bytes"] / (np.percentile(to_device, 50) / 1e3)
+                               / 1e9),
+        "ttft_ms_p50": float(np.percentile(ttft, 50)), "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "decode_tok_per_s_p50": float(np.percentile(decode_tps, 50)),
+        "wall_s_16x32": wall, "out_tok_per_s": sum(len(g) for g in got) / wall,
+        "tokens_equal_engine_1_slot": equal, "tokens": [len(g) for g in got],
+        **steps,
+        "rmsnorm_launches": launches, "rmsnorm_launches_expected": expected,
+        "control_tokens_equal": control == got[0],
+    }
+    emit(out)
+    del pw, dw, handoff
+    gc_collect(torch)
+    if equal != len(prompts):
+        raise AssertionError(f"disagg: {len(prompts) - equal} requests differ from the engine's")
+    if steps["decode_graph_replays"] != steps["decode_steps"] or launches != expected:
+        raise AssertionError(f"disagg: rmsnorm launches {launches} != {expected}, or a decode "
+                             f"step was no graph replay ({steps})")
+    if out["control_tokens_equal"]:
+        raise AssertionError("disagg: the handoff one position short gave the same tokens")
+    return out
+
+
+def phase_batch(torch, card: str) -> dict:
+    """Offline batch inference (llm/batch.py): build_llm_processor over the
+    serve phase's 16 prompts and 16 more, in blocks of 16, greedy, 32
+    tokens, on llama3.2-3b (full width and depth, seeded bf16 weights, the
+    fused RMSNorm; prefix caching off, so every prefill is cold). Limits:
+    each row's text equal to TorchEngine.generate's for the same prompt on
+    the processor's engine; every decode step a graph replay; RMSNorm
+    launches, set to 0 just before the processor runs, equal to the count
+    the engine's counters give. Reported: rows/s and output tok/s."""
+    from ray_tpu_torch.llm import ProcessorConfig, SamplingParams, build_llm_processor
+    from ray_tpu_torch.llm import batch
+    from ray_tpu_torch.ops import rmsnorm
+
+    cfg = _serve_config({}, enable_prefix_caching=False)
+    sampling = {"max_tokens": 32, "temperature": 0.0, "ignore_eos": True}
+    prompts = _serve_prompts() + [f"Row {i:02d}: summarise offline batch inference on a card."
+                                  for i in range(16)]
+    proc = build_llm_processor(ProcessorConfig(llm_config=cfg, batch_size=16,
+                                               sampling_params=sampling))
+    list(proc([{"prompt": ["warm up " * 12]}]))  # builds the process's engine
+    eng = batch._get_engine(cfg)
+    try:
+        stats0 = eng.get_stats()
+        rmsnorm.launches = 0  # counts from here on are the path's
+        t0 = time.perf_counter()
+        blocks = list(proc([{"prompt": prompts[:16]}, {"prompt": prompts[16:]}]))
+        wall = time.perf_counter() - t0
+        launches = rmsnorm.launches
+        delta = _step_delta(stats0, eng.get_stats())
+        texts = [t for b in blocks for t in b["generated_text"]]
+        want = [eng.generate(p, sampling_params=SamplingParams(**sampling)) for p in prompts]
+    finally:
+        eng.shutdown()
+        batch._ENGINE_CACHE.clear()
+    n_norms = 2 * L_3B + 1
+    expected = (n_norms * (delta["decode_steps"] + delta["prefill_final_chunks"])
+                + (n_norms - 1) * delta["prefill_mid_chunks"])
+    equal = sum(t == w.text for t, w in zip(texts, want))
+    out = {
+        "phase": "batch", "card": card, "model": "llama3.2-3b", "rows": len(prompts),
+        "blocks": len(blocks), "block_rows": [len(b["prompt"]) for b in blocks],
+        "max_tokens": 32, "wall_s": wall, "rows_per_s": len(prompts) / wall,
+        "out_tok_per_s": sum(len(w.token_ids) for w in want) / wall,
+        "texts_equal_engine": equal, "rmsnorm_launches": launches,
+        "rmsnorm_launches_expected": expected, **delta,
+    }
+    emit(out)
+    del eng
+    gc_collect(torch)
+    if equal != len(prompts) or len(texts) != len(prompts):
+        raise AssertionError(f"batch: {len(prompts) - equal} rows differ from the engine's text")
+    if delta["decode_graph_replays"] != delta["decode_steps"] or launches != expected:
+        raise AssertionError(f"batch: rmsnorm launches {launches} != {expected}, or a decode step "
+                             f"was no graph replay ({delta})")
+    return out
+
+
+def phase_gang_lora(torch, card: str, serve: dict, lora: dict) -> dict:
+    """Multi-LoRA on a gang (llm/gang.py): the gang_serve phase's one-rank
+    gang (a spawned process holding the card in a one-rank NCCL world,
+    decode_steps 4, run-ahead 2) with max_loras=2, lora_rank=8, served as
+    LLMServer(engine=gang.engine), at llama3.2-3b full width and depth
+    (seeded bf16 weights, fused RMSNorm). Prefill buckets (128, ..., 1024):
+    the gang prefills in chunks of its smallest bucket, so a ~100-token
+    prompt is one chunk padded to 128, as the lora_serve engine pads it.
+
+    load_lora with the lora_serve phase's two adapters; the rank's counters
+    set to 0; the lora_serve phase's mixed batch of 16 (adapters none, a, b
+    in turn, 32 tokens) at once: each request's tokens equal lora_serve's,
+    every decode step a graph replay, RMSNorm launches counted in the rank
+    equal to (2L+1) per decode step and final chunk, 2L per mid chunk. A
+    seeded sampled adapter request whose rank is killed after its first
+    token: the gang is rebuilt with its adapters and the replay equals an
+    uninterrupted run; an adapter request after the rebuild equals
+    lora_serve's again. After unload_lora of both, base requests equal the
+    serve phase's tokens (first 32)."""
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.gang import GangLLMServer
+    from ray_tpu_torch.llm.server import LLMServer
+
+    cfg = _serve_config({}, max_loras=2, lora_rank=8)
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, prefill_buckets=(128, 256, 512, 1024), decode_steps=4, decode_runahead=2))
+
+    def wait(r):
+        if not r.done.wait(600) or r.error is not None:
+            raise AssertionError(f"gang_lora: a request failed: {r.error!r}")
+
+    t0 = time.perf_counter()
+    gang = GangLLMServer(cfg)
+    startup_s = time.perf_counter() - t0
+    try:
+        server = LLMServer(cfg, engine=gang.engine)
+        for name, weights in lora["adapter_weights"].items():
+            server.load_lora(name, weights)
+        if server.list_loras() != ["a", "b"]:
+            raise AssertionError(f"gang_lora: loaded {server.list_loras()}")
+        sp = SamplingParams(max_tokens=32, temperature=0.0, ignore_eos=True)
+        wait(gang.engine.submit("warm up " * 12, sampling_params=sp, lora="a"))
+        gang.rank_counts(reset=True)  # counts from here on are the path's
+        t0 = time.perf_counter()
+        reqs = [gang.engine.submit(b["prompt"], sampling_params=sp, lora=b.get("_lora"))
+                for b in lora["bodies"]]
+        for r in reqs:
+            wait(r)
+        wall = time.perf_counter() - t0
+        (counts,) = gang.rank_counts()
+        mixed = [r.out_tokens for r in reqs]
+        launches = counts["launches"]["rmsnorm"]
+        prog = counts["programs"]
+
+        hot = SamplingParams(max_tokens=64, temperature=0.8, top_k=50, seed=7, ignore_eos=True)
+        req = gang.engine.submit("Sample this after a rank dies.", sampling_params=hot, lora="b")
+        req.stream_queue.get(timeout=600)
+        gang.workers[0].kill()
+        wait(req)
+        again = gang.engine.submit("Sample this after a rank dies.", sampling_params=hot,
+                                   lora="b")
+        wait(again)
+        rebuilds = gang.stats()["rebuilds"]
+        after = gang.engine.submit(lora["bodies"][1]["prompt"], sampling_params=sp, lora="a")
+        wait(after)
+        for name in ("a", "b"):
+            server.unload_lora(name)
+        base = [gang.engine.submit(p, sampling_params=sp) for p in _serve_prompts()]
+        for r in base:
+            wait(r)
+    finally:
+        gang.shutdown()
+    n_norms = 2 * L_3B + 1
+    expected = (n_norms * (prog["decode_steps"] + prog["prefill_final_chunks"])
+                + (n_norms - 1) * prog["prefill_mid_chunks"])
+    base_equal = sum(r.out_tokens == serve["tokens_by_prompt"][tuple(r.prompt_ids)][:32]
+                     for r in base)
+    out = {
+        "phase": "gang_lora", "card": card, "model": "llama3.2-3b", "ranks": gang.num_workers,
+        "max_loras": 2, "lora_rank": 8, "gang_startup_s": startup_s,
+        "adapters": [b.get("_lora") for b in lora["bodies"]],
+        "wall_s_16x32": wall, "out_tok_per_s": 16 * 32 / wall,
+        "lora_serve_out_tok_per_s": lora["out_tok_per_s"],
+        "mixed_equal_lora_serve": sum(g == w for g, w in zip(mixed, lora["mixed"])),
+        "rmsnorm_launches": launches, "rmsnorm_launches_expected": expected,
+        **{k: prog[k] for k in ("decode_programs", "decode_steps", "decode_graph_replays",
+                                "prefill_mid_chunks", "prefill_final_chunks")},
+        "kill": {"rebuilds": rebuilds, "replay_equal": req.out_tokens == again.out_tokens,
+                 "tokens": len(req.out_tokens),
+                 "adapter_after_rebuild_equal_lora_serve": after.out_tokens == lora["mixed"][1]},
+        "base_after_unload_equal_serve": base_equal,
+    }
+    emit(out)
+    gc_collect(torch)
+    if out["mixed_equal_lora_serve"] != 16:
+        raise AssertionError(f"gang_lora: {16 - out['mixed_equal_lora_serve']} requests differ "
+                             "from lora_serve's tokens")
+    if launches != expected or prog["decode_graph_replays"] != prog["decode_steps"]:
+        raise AssertionError(f"gang_lora: rmsnorm launches {launches} != {expected}, or a decode "
+                             f"step was no graph replay ({prog})")
+    kill = out["kill"]
+    if (rebuilds != 1 or not kill["replay_equal"] or kill["tokens"] != 64
+            or not kill["adapter_after_rebuild_equal_lora_serve"]):
+        raise AssertionError(f"gang_lora: the rebuild with adapters: {kill}")
+    if base_equal != 16:
+        raise AssertionError(f"gang_lora: {16 - base_equal} base requests after unload_lora "
+                             "differ from the serve phase's tokens")
     return out
 
 
@@ -2064,6 +2376,8 @@ def main() -> int:
     serve = timed_phase("serve", phase_serve)
     torch.cuda.empty_cache()
     gang_serve = timed_phase("gang_serve", lambda torch, card: phase_gang_serve(torch, card, serve))
+    disagg = timed_phase("disagg", phase_disagg)
+    batch = timed_phase("batch", phase_batch)
     timed_phase("decode_graph", phase_decode_graph)
     timed_phase("numerics", phase_numerics)
     train = timed_phase("train", phase_train)
@@ -2073,6 +2387,8 @@ def main() -> int:
     timed_phase("moe_numerics", phase_moe_numerics)
     moe_train = timed_phase("moe_train", phase_moe_train)
     lora_serve = timed_phase("lora_serve", lambda torch, card: phase_lora_serve(torch, card, serve))
+    gang_lora = timed_phase("gang_lora",
+                            lambda torch, card: phase_gang_lora(torch, card, serve, lora_serve))
     dots = timed_phase("train_dots", lambda torch, card: phase_train_dots(torch, card, train))
     timed_phase("graft_entry", phase_graft_entry)
     train_serve = timed_phase("train_serve", lambda torch, card: phase_train_serve(torch, card, train))
@@ -2122,6 +2438,10 @@ def main() -> int:
                              "gang_serve": gang_serve["rmsnorm_launches"],
                              "moe_serve": moe_serve["rmsnorm_launches"],
                              "lora_serve": lora_serve["rmsnorm_launches"],
+                             "disagg": disagg["rmsnorm_launches"],
+                             "batch": batch["rmsnorm_launches"],
+                             # the gang's rank process, its own counters
+                             "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],
                              "rllib": rllib["launches"]["rmsnorm"]},
         "max_abs_err": k["max_abs_err"],

@@ -80,22 +80,25 @@ def mesh_sweep(n: int) -> list[tuple[str, MeshSpec, dict]]:
     pp2-ep2-moe pp2-ep2; at n = 1 every axis is 1. The labels and model
     kwargs stay the JAX sweep's. This is the only place where the twin
     differs from the reference."""
+    return [(label, fit_mesh(label, sizes, n), dict(kw)) for label, sizes, kw in _SWEEP]
+
+
+def fit_mesh(label: str, sizes: dict, n: int) -> MeshSpec:
+    """An 8-device mesh's axis ``sizes`` fitted to ``n`` ranks as
+    ``mesh_sweep`` fits the sweep's (pure-fsdp scales fsdp, the rest dp)."""
     if n % 8 and n not in (1, 2, 4):
         raise ValueError(f"the sweep takes 1, 2, 4 or a multiple of 8 ranks, not {n}")
-    out = []
-    for label, sizes, kw in _SWEEP:
-        sizes = {a: sizes.get(a, 1) for a in AXIS_ORDER}
-        if n % 8 == 0:
-            lead = "fsdp" if label == "pure-fsdp" else "dp"
-            sizes[lead] *= n // 8
-        else:
-            shrink = 8 // n
-            for a in ("dp", "fsdp", "sp", "tp", "ep", "pp"):
-                while shrink > 1 and sizes[a] > 1:
-                    sizes[a] //= 2
-                    shrink //= 2
-        out.append((label, MeshSpec(**sizes), dict(kw)))
-    return out
+    sizes = {a: sizes.get(a, 1) for a in AXIS_ORDER}
+    if n % 8 == 0:
+        lead = "fsdp" if label == "pure-fsdp" else "dp"
+        sizes[lead] *= n // 8
+    else:
+        shrink = 8 // n
+        for a in ("dp", "fsdp", "sp", "tp", "ep", "pp"):
+            while shrink > 1 and sizes[a] > 1:
+                sizes[a] //= 2
+                shrink //= 2
+    return MeshSpec(**sizes)
 
 
 def sweep_config(model_kw: dict, widths: str = "tiny") -> LlamaConfig:
@@ -140,6 +143,8 @@ def sweep_loop(config: dict) -> None:
     every mesh's config after its own), ``gather`` (rank 0 reports
     the params after the step), ``timed_steps``, ``reference`` (rank 0 also
     runs the unsharded step on the global batch, whole model on its card),
+    ``extra_meshes`` (more [(label, axis sizes, model kwargs)] after the
+    sweep's, already fitted to ``n``),
     ``control_leaf`` (on the first mesh, one more step from the same
     initial state whose backward counts that leaf's gradient twice, as a
     gradient all-reduce issued twice would: its loss is the true one, its
@@ -160,7 +165,8 @@ def sweep_loop(config: dict) -> None:
             torch.cuda.synchronize(device)
 
     first = True
-    for label, spec, kw in mesh_sweep(config["n"]):
+    extra = [(label, MeshSpec(**sizes), kw) for label, sizes, kw in config.get("extra_meshes", ())]
+    for label, spec, kw in mesh_sweep(config["n"]) + extra:
         if config.get("meshes") and label not in config["meshes"]:
             continue
         mesh = build_mesh(spec, device.type)
@@ -308,8 +314,8 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None, *, widths: st
     one NCCL rank a card by default, gloo ranks with ``device="cpu"``.
     Prints one line per mesh (loss, grad norm, step ms) and returns rank
     0's records; a non-finite loss raises. ``options`` go to
-    ``sweep_loop`` (``meshes``, ``params``, ``init``, ``optimizer``, ``model_kwargs``,
-    ``gather``, ``timed_steps``, ``reference``)."""
+    ``sweep_loop`` (``meshes``, ``extra_meshes``, ``params``, ``init``, ``optimizer``,
+    ``model_kwargs``, ``gather``, ``timed_steps``, ``reference``)."""
     from ray_tpu_torch.train._internal.worker_group import run_ranks
 
     use_gpu = resolve_device(device).type == "cuda"

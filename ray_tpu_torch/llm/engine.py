@@ -93,6 +93,36 @@ def sample_tokens(logits: torch.Tensor, hot: list, ranks: torch.Tensor) -> torch
     return toks
 
 
+def build_model(config: LLMConfig, tokenizer, device: torch.device) -> tuple:
+    """(model config, params on ``device``) of a served config: the
+    checkpoint at ``ModelConfig.checkpoint_path`` (the JAX engine's
+    ``restore_pytree``, ``ray_tpu/llm/engine.py:207-208``, here checked leaf
+    by leaf against the served config's shapes), else ``init_params`` from
+    the config's seed. One copy of the params on the device."""
+    mc, ec = config.model, config.engine
+    model_cfg = resolve_llama_config(mc, ec, min_vocab=tokenizer.vocab_size)
+    if mc.checkpoint_path:
+        params = restore_state_dict(mc.checkpoint_path, like=param_template(model_cfg),
+                                    device=device)
+    else:
+        params = init_params(model_cfg, seed=mc.seed, device=device)
+    return model_cfg, params
+
+
+def adapter_tensors(name: str, adapters: dict, stacks: dict) -> dict:
+    """An adapter's weights ({wq_a, wq_b, wv_a, wv_b}, tensors or numpy
+    arrays) as tensors, each checked against one slot of its stack
+    (``stacks``: ``init_lora_stack``'s, real or meta)."""
+    out = {}
+    for k, stack in stacks.items():
+        a = adapters[k] if torch.is_tensor(adapters[k]) else _to_tensor(adapters[k])
+        want = stack.shape[:1] + stack.shape[2:]
+        if a.shape != want:
+            raise ValueError(f"{name}.{k}: shape {tuple(a.shape)} != {tuple(want)}")
+        out[k] = a
+    return out
+
+
 @dataclasses.dataclass
 class RequestOutput:
     request_id: str
@@ -369,16 +399,7 @@ class TorchEngine:
         self._params = params
 
     def _build_model(self):
-        mc, ec = self.config.model, self.config.engine
-        self.model_cfg = resolve_llama_config(mc, ec, min_vocab=self.tokenizer.vocab_size)
-        if mc.checkpoint_path:
-            # the JAX engine's restore_pytree (ray_tpu/llm/engine.py:207-208),
-            # checked leaf by leaf against the served config's shapes
-            self.params = restore_state_dict(
-                mc.checkpoint_path, like=param_template(self.model_cfg), device=self.device
-            )
-        else:
-            self.params = init_params(self.model_cfg, seed=mc.seed, device=self.device)
+        self.model_cfg, self.params = build_model(self.config, self.tokenizer, self.device)
 
     # -- device helpers -----------------------------------------------------
 
@@ -497,13 +518,8 @@ class TorchEngine:
         if not free:
             raise RuntimeError(f"all {self.config.engine.max_loras} LoRA slots in use")
         idx = free[0]
-        new = {}
-        for k, stack in self.loras.items():
-            a = adapters[k] if torch.is_tensor(adapters[k]) else _to_tensor(adapters[k])
-            want = stack.shape[:1] + stack.shape[2:]
-            if a.shape != want:
-                raise ValueError(f"{name}.{k}: shape {tuple(a.shape)} != {tuple(want)}")
-            new[k] = a.to(device=self.device, dtype=stack.dtype)
+        new = {k: a.to(device=self.device, dtype=self.loras[k].dtype)
+               for k, a in adapter_tensors(name, adapters, self.loras).items()}
         with self._launch_lock, torch.no_grad():
             for k, stack in self.loras.items():
                 stack[:, idx].copy_(new[k])

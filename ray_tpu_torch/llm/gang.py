@@ -29,8 +29,17 @@ discarded at apply.
 Fault tolerance: sampling keys are derived from (request seed, token
 index), so when a rank dies (its process exits, or its pipe ends) the
 server stops the whole gang, spawns a fresh one with a fresh rendezvous
-store, and replays the requests in flight; the regenerated tokens are
-byte-identical and already-streamed ones are skipped.
+store, loads its adapters again, and replays the requests in flight; the
+regenerated tokens are byte-identical and already-streamed ones are
+skipped.
+
+Multi-LoRA, as the JAX engine serves it on a tp/sp mesh
+(``ray_tpu/llm/engine.py:435-480``): ``add_lora``/``remove_lora`` go to
+every rank through the scheduler thread, in the plan stream's order, and
+each rank writes the stack slot in place; an adapter is visible to
+``submit`` only once every rank holds it. Each admission plan names its
+request's adapter, and adapter requests bypass the prefix cache, as in
+both engines.
 """
 
 from __future__ import annotations
@@ -50,19 +59,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
-from ray_tpu_torch.llm.engine import RequestOutput
+from ray_tpu_torch.llm.config import LLMConfig, SamplingParams, resolve_llama_config
+from ray_tpu_torch.llm.engine import RequestOutput, adapter_tensors
 from ray_tpu_torch.llm.pacing import TokenPacer
 from ray_tpu_torch.llm.server import LLMServer
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
+from ray_tpu_torch.models.llama import init_lora_stack
 from ray_tpu_torch.ops import add_launch_counts, launch_counts
 from ray_tpu_torch.train._internal.worker_group import WorkerGroup
 from ray_tpu_torch.train.config import ScalingConfig
-
-# what add_lora says on a gang front (the reference's GangLLMServer has no
-# LoRA API either)
-_NO_LORA = ("LoRA adapters on a tensor/sequence-parallel gang are not ported: the JAX "
-            "package's GangLLMServer has no LoRA API (ROADMAP, Queue A: LoRA on a gang)")
 
 
 class EngineWorker:
@@ -87,6 +92,14 @@ class EngineWorker:
             "mesh": {k: int(v) for k, v in
                      zip(self.gen.mesh.mesh_dim_names, self.gen.mesh.mesh.shape)},
         }
+
+    def generate_batch(self, token_lists, params_dict: Optional[dict]):
+        """Lockstep whole-batch generation (``SPMDGenerator.generate_batch``,
+        the reference's offline batch entry): every rank computes the same
+        tokens, rank 0 returns them and the others ``True``."""
+        sp = SamplingParams(**params_dict) if params_dict else None
+        out = self.gen.generate_batch(token_lists, sampling_params=sp)
+        return out if self.rank == 0 else True
 
     def counts(self, reset: bool) -> dict:
         """This rank's kernel launches (every counter, by kernel name) and
@@ -121,6 +134,9 @@ def _engine_rank(config: dict, conn, inbox, device: torch.device) -> None:
                            "sent_t": time.monotonic()})
         elif msg["op"] == "counts":
             conn.send({"kind": "counts", "rank": worker.rank, **worker.counts(msg["reset"])})
+        elif msg["op"] == "lora":
+            worker.eng.set_lora(msg["idx"], msg["weights"])
+            conn.send({"kind": "lora", "rank": worker.rank})
         elif msg["op"] == "stop":
             return
 
@@ -132,9 +148,11 @@ class _RankFailed(RuntimeError):
 class _GangRequest:
     _seq = itertools.count()
 
-    def __init__(self, request_id: str, prompt_ids: list, params: SamplingParams):
+    def __init__(self, request_id: str, prompt_ids: list, params: SamplingParams,
+                 lora_idx: int = 0):
         self.seq = next(self._seq)
         self.request_id = request_id
+        self.lora_idx = lora_idx  # adapter stack slot; 0 = the base model
         self.prompt_ids = prompt_ids
         self.params = params  # seed is always concrete (replay determinism)
         self.out_tokens: list[int] = []  # emitted (streamed) tokens
@@ -179,8 +197,19 @@ class GangLLMServer:
         self._group: Optional[WorkerGroup] = None
         self._plan_seq = itertools.count()
         self._replies: dict[int, dict] = {}
-        self._rank_counts: dict[int, dict] = {}
+        self._rank_replies: dict[int, dict] = {}
         self._stop = False
+        # multi-LoRA: the stacks' shapes and dtype (meta tensors; None at
+        # max_loras=0), name -> slot of the adapters every rank holds, and
+        # slot -> host weights of every adapter loaded or being loaded (a
+        # rebuilt gang loads them again)
+        self.lora_template = None
+        if ec.max_loras > 0:
+            mcfg = resolve_llama_config(llm_config.model, ec, min_vocab=self.tokenizer.vocab_size)
+            self.lora_template = init_lora_stack(mcfg, ec.max_loras, ec.lora_rank, "meta")
+        self._lora_slots: dict[str, int] = {}
+        self._lora_weights: dict[int, dict] = {}
+        self._lora_lock = threading.Lock()
         self.engine = GangEngine(self)
         self._front = LLMServer(llm_config, engine=self.engine,
                                 reply_errors=(ValueError, RuntimeError, TimeoutError))
@@ -268,7 +297,7 @@ class GangLLMServer:
                             experiment_name="gang")
         self._group = group
         self._replies = {}
-        self._rank_counts = {}
+        self._rank_replies = {}
         budget = self.llm_config.compile_budget_s()
         group.start_loop(_engine_rank, {"llm_config": self.llm_config, "spawned_at": time.time()})
         deadline = time.monotonic() + budget
@@ -316,8 +345,8 @@ class GangLLMServer:
         for m in msgs:
             if m["kind"] == "step":
                 self._replies[m["seq"]] = m
-            elif m["kind"] == "counts":
-                self._rank_counts[m["rank"]] = m
+            elif m["kind"] in ("counts", "lora"):
+                self._rank_replies[m["rank"]] = m
             elif m["kind"] == "error":
                 raise _RankFailed(f"gang rank {m['rank']} failed:\n{m['error']}")
         if exited:
@@ -336,28 +365,38 @@ class GangLLMServer:
         """Every rank's kernel launch counters (``ops.launch_counts``,
         counted inside the rank) and program counters, by rank, after the
         plans sent before this call; ``reset`` sets them to 0 after."""
-        req = {"reset": reset, "done": threading.Event(), "out": None, "error": None}
+        return self._control_call({"op": "counts", "reset": reset}, timeout)
+
+    def _control_call(self, msg: dict, timeout: float = 120.0) -> list[dict]:
+        """``msg`` to every rank, sent by the scheduler thread between
+        plans (it alone reads the pipes); every rank's reply, by rank."""
+        req = {"msg": msg, "done": threading.Event(), "out": None, "error": None}
         with self._cv:
             self._control.append(req)
             self._cv.notify_all()
         if not req["done"].wait(timeout):
-            raise TimeoutError("the gang did not report its counters")
+            raise TimeoutError(f"the gang did not answer {msg['op']!r}")
         if req["error"] is not None:
             raise req["error"]
         return req["out"]
+
+    def _ask_all(self, msg: dict) -> list[dict]:
+        """Send ``msg`` to every rank and wait for each one's reply (the
+        scheduler thread, or start-up before it exists)."""
+        self._rank_replies = {}
+        self._send_all(msg)
+        deadline = time.monotonic() + 120.0
+        while len(self._rank_replies) < self.num_workers:
+            if time.monotonic() > deadline:
+                raise _RankFailed(f"the ranks did not answer {msg['op']!r}")
+            self._take(0.1)
+        return [self._rank_replies[r] for r in range(self.num_workers)]
 
     def _serve_control(self):
         while self._control:
             req = self._control.popleft()
             try:
-                self._rank_counts = {}
-                self._send_all({"op": "counts", "reset": req["reset"]})
-                deadline = time.monotonic() + 120.0
-                while len(self._rank_counts) < self.num_workers:
-                    if time.monotonic() > deadline:
-                        raise _RankFailed("the ranks did not report their counters")
-                    self._take(0.1)
-                req["out"] = [self._rank_counts[r] for r in range(self.num_workers)]
+                req["out"] = self._ask_all(req["msg"])
             except Exception as e:  # noqa: BLE001 — handed to the caller
                 req["error"] = e
                 if isinstance(e, (_RankFailed, OSError)):
@@ -367,20 +406,27 @@ class GangLLMServer:
 
     # -- scheduler loop ------------------------------------------------------
 
-    def submit(self, prompt: str, params: SamplingParams) -> _GangRequest:
-        return self.submit_ids(self.tokenizer.encode(prompt), params)
+    def submit(self, prompt: str, params: SamplingParams,
+               lora: Optional[str] = None) -> _GangRequest:
+        return self.submit_ids(self.tokenizer.encode(prompt), params, lora)
 
-    def submit_ids(self, ids: list[int], params: SamplingParams) -> _GangRequest:
+    def submit_ids(self, ids: list[int], params: SamplingParams,
+                   lora: Optional[str] = None) -> _GangRequest:
         if len(ids) > self.max_len - 1:
             raise ValueError(
                 f"prompt length {len(ids)} exceeds the maximum "
                 f"{self.max_len - 1} (max_seq_len)"
             )
+        lora_idx = 0
+        if lora:
+            if lora not in self._lora_slots:
+                raise KeyError(f"unknown LoRA adapter: {lora!r}")
+            lora_idx = self._lora_slots[lora]
         if params.seed is None:
             # every request gets a concrete seed: replay after a gang
             # rebuild must regenerate the exact streamed tokens
             params = dataclasses.replace(params, seed=random.getrandbits(31))
-        req = _GangRequest(f"gang-{uuid.uuid4().hex[:12]}", list(ids), params)
+        req = _GangRequest(f"gang-{uuid.uuid4().hex[:12]}", list(ids), params, lora_idx)
         with self._cv:
             # checked under _cv so it cannot race _fail_outstanding's final
             # queue snapshot: after shutdown() or a scheduler crash no
@@ -516,6 +562,7 @@ class GangLLMServer:
                         "temp": float(a["req"].params.temperature),
                         "top_k": int(a["req"].params.top_k),
                         "key": np.asarray([a["req"].params.seed & 0xFFFFFFFF, 0], np.uint32),
+                        "lora": a["req"].lora_idx,
                     }
                 )
                 a["idx"] += 1
@@ -580,7 +627,10 @@ class GangLLMServer:
         ids = req.prompt_ids
         C = self.chunk
         L = len(ids)
-        m = C * ((L - 1) // C)  # bucket-aligned strict-prefix length
+        # bucket-aligned strict-prefix length; an adapted request neither
+        # reuses base-model KV (its V carries the adapter's delta) nor
+        # stores its own
+        m = C * ((L - 1) // C) if req.lora_idx == 0 else 0
         prefix_key = None
         store_key = None
         if m > 0:
@@ -719,9 +769,10 @@ class GangLLMServer:
 
     def _do_rebuild(self, cause: Optional[BaseException] = None):
         """A rank died: the process group is broken for every survivor, so
-        stop the whole gang, spawn a fresh one, and replay the requests in
-        flight (deterministic seeds make the replayed prefix
-        byte-identical; already-streamed tokens are skipped)."""
+        stop the whole gang, spawn a fresh one, load its adapters again,
+        and replay the requests in flight (deterministic seeds make the
+        replayed prefix byte-identical; already-streamed tokens are
+        skipped)."""
         self._need_rebuild = False
         if self._stop:
             # shutdown() is reaping the gang: a failure here is the teardown
@@ -751,6 +802,12 @@ class GangLLMServer:
                 for r in live + queued:
                     self._fail_request(r, e)
                 return
+        try:
+            # the adapters come back before any plan reaches the new ranks
+            for idx, weights in sorted(self._lora_weights.items()):
+                self._ask_all({"op": "lora", "idx": idx, "weights": weights})
+        except (_RankFailed, OSError):
+            self._need_rebuild = True  # a rank died again: the loop rebuilds once more
         for r in live:
             # replay from the prompt; the emitted prefix is skipped on re-stream
             r.gen_count = 0
@@ -759,6 +816,48 @@ class GangLLMServer:
             for r in sorted(live, key=lambda r: r.seq, reverse=True):
                 self._queue.appendleft(r)
             self._cv.notify_all()
+
+    # -- multi-LoRA ----------------------------------------------------------
+
+    def add_lora(self, name: str, adapters: dict) -> int:
+        """Load an adapter into a free stack slot on every rank and return
+        the slot (``TorchEngine.add_lora``'s contract). ``adapters``:
+        {wq_a: [L, e, r], wq_b: [L, r, h, hd], wv_a: [L, e, r],
+        wv_b: [L, r, kv, hd]}, tensors or numpy arrays, whole (each rank
+        cuts the B matrices to its heads)."""
+        if self.lora_template is None:
+            raise ValueError("engine built with max_loras=0")
+        with self._lora_lock:
+            if name in self._lora_slots:
+                return self._lora_slots[name]
+            free = [i for i in range(1, self.llm_config.engine.max_loras + 1)
+                    if i not in self._lora_weights]
+            if not free:
+                raise RuntimeError(f"all {self.llm_config.engine.max_loras} LoRA slots in use")
+            idx = free[0]
+            weights = {k: a.detach().to("cpu", self.lora_template[k].dtype)
+                       for k, a in adapter_tensors(name, adapters, self.lora_template).items()}
+            self._lora_weights[idx] = weights  # a rebuild from here on reloads it
+            try:
+                self._control_call({"op": "lora", "idx": idx, "weights": weights})
+            except BaseException:
+                self._lora_weights.pop(idx, None)
+                raise
+            self._lora_slots[name] = idx
+        return idx
+
+    def remove_lora(self, name: str) -> None:
+        with self._lora_lock:
+            idx = self._lora_slots.pop(name, None)
+            if idx is None:
+                return
+            try:
+                self._control_call({"op": "lora", "idx": idx, "weights": None})
+            finally:
+                del self._lora_weights[idx]
+
+    def list_loras(self) -> list[str]:
+        return sorted(self._lora_slots)
 
     # -- OpenAI surface ------------------------------------------------------
 
@@ -795,6 +894,23 @@ class GangLLMServer:
     def chat_stream(self, body: dict):
         """Generator of OpenAI ``chat.completion.chunk`` dicts."""
         return self._front.chat_stream(body)
+
+    def __call__(self, request) -> dict:
+        """Direct-proxy entry (``ray_tpu/llm/gang.py:909-923``): a request
+        with ``.path`` and ``.json()``; a gang can also sit behind an OpenAI
+        router, which calls ``completions``/``chat`` itself."""
+        path = request.path or ""
+        if path.endswith("/models") or path.endswith("/model_info"):
+            return self.model_info()
+        try:
+            body = request.json() or {}
+        except Exception:  # noqa: BLE001 — any unparsable body is the client's error
+            return {"error": {"message": "invalid JSON body", "code": 400}}
+        if path.endswith("/chat/completions") or path.endswith("/chat"):
+            return self.chat(body)
+        if path.endswith("/completions"):
+            return self.completions(body)
+        return {"error": {"message": f"unknown route {path}", "code": 404}}
 
     # -- ops -----------------------------------------------------------------
 
@@ -874,36 +990,34 @@ class GangLLMServer:
 
 class GangEngine:
     """``TorchEngine``'s public surface (``generate``, ``generate_stream``,
-    ``submit``/``drain``, ``get_stats``, ``shutdown``) over a gang of
-    tp x sp ranks on this host: what ``TorchEngine(config)`` is for a
-    tensor- or sequence-parallel config, where the JAX engine serves it as
-    one process over the host's devices. ``LLMServer`` serves it unchanged.
-    Adapters raise ``NotImplementedError``."""
-
-    loras = None
+    ``submit``/``drain``, the adapters, ``get_stats``, ``shutdown``) over a
+    gang of tp x sp ranks on this host: what ``TorchEngine(config)`` is for
+    a tensor- or sequence-parallel config, where the JAX engine serves it
+    as one process over the host's devices. ``LLMServer`` serves it
+    unchanged. ``loras`` holds the adapter stacks' shapes and dtype (meta
+    tensors; the stacks live on the ranks), None at max_loras=0."""
 
     def __init__(self, gang: GangLLMServer):
         self.gang = gang
         self.config = gang.llm_config
         self.tokenizer = gang.tokenizer
+        self.loras = gang.lora_template
 
     @property
     def _thread(self) -> threading.Thread:
         return self.gang._loop_thread
 
     def add_lora(self, name: str, adapters: dict) -> int:
-        raise NotImplementedError(_NO_LORA)
+        return self.gang.add_lora(name, adapters)
 
     def remove_lora(self, name: str) -> None:
-        raise NotImplementedError(_NO_LORA)
+        self.gang.remove_lora(name)
 
     def list_loras(self) -> list[str]:
-        return []
+        return self.gang.list_loras()
 
     def submit(self, prompt=None, *, prompt_token_ids=None, sampling_params=None,
                lora: Optional[str] = None) -> _GangRequest:
-        if lora:
-            raise NotImplementedError(_NO_LORA)
         if prompt_token_ids is None:
             if prompt is None:
                 raise ValueError("prompt or prompt_token_ids required")
@@ -911,7 +1025,14 @@ class GangEngine:
         # as TorchEngine: a prompt too long keeps its last max_seq_len - 1 tokens
         max_prompt = self.config.engine.max_seq_len - 1
         return self.gang.submit_ids(list(prompt_token_ids)[-max_prompt:],
-                                    sampling_params or SamplingParams())
+                                    sampling_params or SamplingParams(), lora)
+
+    def _await_done(self, req: _GangRequest) -> None:
+        """``TorchEngine._await_done``: returns when the request has ended,
+        a failure left on ``req.error`` (the scheduler fails every
+        outstanding request on its way out, so a dead gang never hangs)."""
+        if not req.done.wait(timeout=600):
+            req.error = TimeoutError("gang generation timed out")
 
     def drain(self, req: _GangRequest) -> Iterator[dict]:
         for tok in self.gang.tokens(req):

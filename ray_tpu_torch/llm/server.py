@@ -4,7 +4,7 @@ Counterpart of ``ray_tpu/llm/server.py``: the same request and reply
 shapes, hosted on the port's engine. A replica = one engine = one CUDA
 device, or, for a tensor- or sequence-parallel config, a gang of rank
 processes, one a card (``TorchEngine`` gives a ``llm/gang.py:GangEngine``
-then; it serves no adapters). ``GangLLMServer``'s OpenAI methods are this
+then, adapters included). ``GangLLMServer``'s OpenAI methods are this
 class's over its gang. LoRA adapters load from in-memory weights or from a checkpoint
 path (the port's or the JAX package's format, ``train/checkpoint.py``); a
 request picks one with ``"_lora"`` and gets an OpenAI-style 404 for an

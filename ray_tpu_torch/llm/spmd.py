@@ -41,6 +41,7 @@ from ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ray_tpu_torch.models.llama import (
     decode_step,
     init_kv_cache,
+    init_lora_stack,
     init_params,
     param_specs,
     param_template,
@@ -245,6 +246,13 @@ class SPMDEngineWorker:
     at construction, as ``TorchEngine`` runs its pools; on the CPU it runs
     eagerly. Determinism rule: sampling keys arrive IN the plan, derived
     from (request seed, token index).
+
+    Multi-LoRA (``max_loras`` > 0), as ``TorchEngine`` serves it: every
+    rank holds the whole adapter stacks (``_decode_forward`` cuts the B
+    matrices to the rank's heads), written in place by ``set_lora`` so the
+    captured graph stays valid; an admission names its adapter, every chunk
+    of it prefills with that adapter, and its final chunk writes the
+    slot's id into ``adapter_ids``, which the decode graph reads.
     """
 
     def __init__(self, config: LLMConfig, generator: SPMDGenerator):
@@ -266,6 +274,11 @@ class SPMDEngineWorker:
         # device-resident next-token inputs (the decode graph's input: only
         # ever written in place)
         self._dev_toks = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
+        # adapter stacks (slot 0 zero, the base model) and each decode
+        # slot's adapter, read by the decode graph; None at max_loras=0
+        self.loras = (init_lora_stack(self.model_cfg, ec.max_loras, ec.lora_rank, self.device)
+                      if ec.max_loras > 0 else None)
+        self.adapter_ids = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
         # work counters; the kernel launch count of a run follows from them
         self.counts = {
             "decode_programs": 0, "decode_steps": 0, "decode_graph_replays": 0,
@@ -279,10 +292,28 @@ class SPMDEngineWorker:
         if self.device.type == "cuda":
             with torch.cuda.device(self.device), torch.inference_mode():
                 self.graph = DecodeGraph(self.params, self.cache, self._dev_toks,
-                                         self.model_cfg, mesh=self.mesh)
+                                         self.model_cfg, mesh=self.mesh,
+                                         **self._lora_kw(self.adapter_ids))
 
     def _int_vec(self, v: int) -> torch.Tensor:
         return torch.full((1,), v, dtype=torch.int32, device=self.device)
+
+    def _lora_kw(self, adapter_ids: torch.Tensor) -> dict:
+        """The adapter keywords of prefill/decode_step: none without LoRA."""
+        if self.loras is None:
+            return {}
+        return {"loras": self.loras, "adapter_ids": adapter_ids}
+
+    @torch.inference_mode()
+    def set_lora(self, idx: int, weights: Optional[dict]) -> None:
+        """Write adapter ``weights`` ({wq_a, wq_b, wv_a, wv_b}, whole, the
+        server checked their shapes) into stack slot ``idx``, or zero the
+        slot (None), in place."""
+        for k, stack in self.loras.items():
+            if weights is None:
+                stack[:, idx].zero_()
+            else:
+                stack[:, idx].copy_(weights[k].to(device=self.device, dtype=stack.dtype))
 
     @torch.inference_mode()
     def step(self, plan: dict) -> dict:
@@ -318,14 +349,18 @@ class SPMDEngineWorker:
                 self._ones[slot] = one
             tokens = self.gen.to_device(adm["tokens"])
             eff, start = self._int_vec(adm["eff"]), self._int_vec(adm["start"])
+            lora = adm["lora"]
+            lora_kw = self._lora_kw(self._int_vec(lora))
             if not adm["final"]:
                 prefill(self.params, self._ones[slot], tokens, cfg, lengths=eff, start_pos=start,
-                        with_logits=False, mesh=mesh)
+                        with_logits=False, mesh=mesh, **lora_kw)
                 self.counts["prefill_mid_chunks"] += 1
                 continue
             one = self._ones.pop(slot)
             last, _ = prefill(self.params, one, tokens, cfg, lengths=eff, start_pos=start,
-                              mesh=mesh)
+                              mesh=mesh, **lora_kw)
+            if self.loras is not None:
+                self.adapter_ids[slot].fill_(lora)
             self.counts["prefill_final_chunks"] += 1
             self.cache["k"][:, slot].copy_(one["k"][:, 0])
             self.cache["v"][:, slot].copy_(one["v"][:, 0])
@@ -373,7 +408,7 @@ class SPMDEngineWorker:
                 self.counts["decode_graph_replays"] += 1
             else:
                 logits, _ = decode_step(self.params, self.cache, self._dev_toks, self.model_cfg,
-                                        mesh=self.mesh)
+                                        mesh=self.mesh, **self._lora_kw(self.adapter_ids))
             toks = self.gen.sample(logits, dec["temps"], dec["top_ks"], dec["keys"][k])
             self._dev_toks.copy_(toks)
             outs.append(toks)

@@ -338,10 +338,6 @@ class _Plan:
     def __init__(self, cfg: LlamaConfig, mesh):
         self.mesh = mesh
         self.sizes = pmesh.mesh_sizes(mesh)
-        if self.sizes["ep"] > 1 and self.sizes["sp"] > 1 and cfg.moe_experts:
-            raise NotImplementedError(
-                "MoE with ep > 1 and sp > 1: the JAX package routes flat token chunks over "
-                "(dp, fsdp, sp) there, not this rank's sequence shard")
         self.specs = param_specs(cfg, mesh)
         self.tp = pmesh.axis_group(mesh, "tp")
         self.tp_rank = mesh.get_local_rank("tp")
@@ -443,7 +439,9 @@ def _layer(layer_params, x, positions, cfg: LlamaConfig, tables=None, plan=None)
 def _moe_ffn(p, h, cfg: LlamaConfig, plan=None):
     """Routed expert FFN of one layer, with capacity. h: [B, T, e] ->
     ([B, T, e], aux). On a mesh: ``moe.moe_layer`` when ep > 1 (routing
-    local to the token shard, the JAX package's ``moe_layer``), else
+    local to the token shard, the JAX package's ``moe_layer``; with sp > 1
+    the shard is a chunk of the (dp, fsdp) group's flattened rows, as JAX
+    shards them, laid out and back by ``moe.token_chunks``), else
     ``moe.moe_dense`` routed over the global batch (the JAX package's
     ``moe_dense`` under GSPMD); the expert weights whole along embed and
     mlp (gathered over fsdp and tp, as the JAX shard_map's in_specs have
@@ -459,8 +457,13 @@ def _moe_ffn(p, h, cfg: LlamaConfig, plan=None):
               capacity_factor=cfg.moe_capacity_factor)
     tokens = h.reshape(B * T, e)
     if plan is not None and plan.sizes["ep"] > 1:
+        chunked = plan.sizes["sp"] > 1
+        if chunked:
+            tokens = moe.token_chunks(tokens, plan.mesh, B)
         y, aux = moe.moe_layer(bank, tokens, plan.mesh, tokens_axis_names=("dp", "fsdp", "sp"),
                                **kw)
+        if chunked:
+            y = moe.token_chunks(y, plan.mesh, B, inverse=True)
     else:
         y, aux = moe.moe_dense(bank, tokens, mesh=None if plan is None else plan.mesh,
                                row_len=T, **kw)

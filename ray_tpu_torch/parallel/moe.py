@@ -17,9 +17,11 @@ the form the model runs at ep = 1 on a sharded batch.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -198,6 +200,55 @@ def _moe_global(params, x, E, top_k, capacity_factor, mesh, group, row_len):
     me = all_reduce(probs.sum(0), group) / G_all
     ce = torch.stack(every).sum((0, 1)).float() / G_all
     return y, (me * ce).sum() * E
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_moves(rows: int, t_local: int, sp: int, s: int, device: torch.device) -> tuple:
+    """The token moves between rank ``s``'s sequence shard of ``rows`` rows
+    ([rows, t_local] tokens at positions s t_local onwards) and chunk ``s``
+    of the group's flattened [rows, sp t_local] tokens, one direction and
+    the other: each (rows to send in order, send counts, the received rows'
+    order to take, receive counts). A token goes to the chunk its flat
+    index falls in; a chunk receives from each source in flat order."""
+    T, N = t_local * sp, rows * t_local
+    flat = (np.arange(rows)[:, None] * T + s * t_local + np.arange(t_local)[None, :]).ravel()
+    dest = flat // N
+    src = ((s * N + np.arange(N)) % T) // t_local
+    by_dest = np.argsort(dest, kind="stable")  # shard rows, grouped by chunk
+    by_src = np.argsort(src, kind="stable")  # chunk rows, grouped by source shard
+    n_dest = np.bincount(dest, minlength=sp).tolist()
+    n_src = np.bincount(src, minlength=sp).tolist()
+
+    def idx(a):
+        return torch.as_tensor(a, device=device)
+
+    return ((idx(by_dest), n_dest, idx(np.argsort(by_src)), n_src),
+            (idx(by_src), n_src, idx(np.argsort(by_dest)), n_dest))
+
+
+def token_chunks(x, mesh, rows: int, inverse: bool = False):
+    """Lay this rank's tokens out as the JAX package's MoE takes them on a
+    mesh with sp > 1, and back (``inverse``).
+
+    The JAX ``_moe_ffn`` flattens [B, T, e] to [B T, e] and shard_maps the
+    token dim over (dp, fsdp, sp): each rank then routes a contiguous chunk
+    of its (dp, fsdp) group's flattened rows, not its sequence shard. Here
+    x [rows t_local, e] is this rank's sequence shard of its group's
+    ``rows`` rows, row-major; one all-to-all over sp gives chunk ``s`` of
+    the group's [rows T, e] on sp rank ``s`` (the same count of tokens),
+    and ``inverse`` moves a chunk's rows back. The two layouts agree only
+    at rows = 1. The all-to-all's backward is its transpose."""
+    from torch.distributed.nn.functional import all_to_all_single
+
+    from ray_tpu_torch.parallel.mesh import axis_group, mesh_sizes
+
+    moves = _chunk_moves(rows, x.shape[0] // rows, mesh_sizes(mesh)["sp"],
+                         mesh.get_local_rank("sp"), x.device)
+    send, n_send, take, n_recv = moves[1 if inverse else 0]
+    moved = all_to_all_single(x.new_empty(x.shape), x.index_select(0, send),
+                              output_split_sizes=n_recv, input_split_sizes=n_send,
+                              group=axis_group(mesh, "sp"))
+    return moved.index_select(0, take)
 
 
 def moe_layer(params, x, mesh, *, axis_name: str = "ep", num_experts: int, top_k: int = 2,

@@ -2,6 +2,7 @@
 
     python -m ray_tpu_torch.tools.gang_bench --tp 1 2 4 --sp-tp 2,2
     python -m ray_tpu_torch.tools.gang_bench --tp 1 2 4 --dtype float32 --no-engine
+    python -m ray_tpu_torch.tools.gang_bench --tp 1 2 4 --adapters  # multi-LoRA
     python -m ray_tpu_torch.tools.gang_bench --tp 1 2 --cpu --model tiny  # gloo rehearsal
 
 For each tensor-parallel degree (and each sp,tp pair of ``--sp-tp``) a
@@ -11,7 +12,9 @@ fused RMSNorm; ``--model tiny`` in fp32 for the rehearsal) with 16 slots x 1024,
 decode_steps 4 and run-ahead 2 (the smoke's gang_serve phase): a warm-up, the ranks'
 counters set to 0, then 16 distinct ~100-byte greedy prompts of 64 tokens
 submitted at once. The single-process ``TorchEngine`` on the same config
-runs first on one card (``--no-engine`` skips it).
+runs first on one card (``--no-engine`` skips it). ``--adapters`` serves
+with max_loras=2, lora_rank=8: two seeded adapters loaded into the engine
+and each gang, and the 16 prompts on adapters (none, a, b) in turn.
 
 Prints one JSON line per configuration: output tok/s (16 x 64 over the
 wall time from the first submit to the last token), TTFT p50/p99 (each
@@ -36,7 +39,7 @@ import time
 DECODE_STEPS, RUNAHEAD = 4, 2
 
 
-def _config(model: str, tp: int, sp: int, dtype: str, checkpoint=None):
+def _config(model: str, tp: int, sp: int, dtype: str, checkpoint=None, adapters=False):
     from ray_tpu_torch.llm import EngineConfig, LLMConfig, ModelConfig
 
     tiny = model == "tiny"
@@ -48,8 +51,29 @@ def _config(model: str, tp: int, sp: int, dtype: str, checkpoint=None):
                             prefill_chunk=256, decode_steps=DECODE_STEPS,
                             decode_runahead=RUNAHEAD, tensor_parallel_degree=tp,
                             sequence_parallel_degree=sp,
-                            dtype="float32" if tiny else dtype),
+                            dtype="float32" if tiny else dtype,
+                            max_loras=2 if adapters else 0, lora_rank=8),
     )
+
+
+def _adapters(cfg) -> dict:
+    """Two seeded adapters {name: weights} of the served model's shapes, on
+    the host (chip_smoke.py's lora_serve scale: A N(0, 1) / sqrt(d_model),
+    B N(0, 1) x 4 / sqrt(rank))."""
+    import torch
+
+    from ray_tpu_torch.llm.config import resolve_llama_config
+    from ray_tpu_torch.llm.tokenizer import get_tokenizer
+    from ray_tpu_torch.models.llama import init_lora_stack
+
+    ec = cfg.engine
+    mcfg = resolve_llama_config(cfg.model, ec,
+                                min_vocab=get_tokenizer(cfg.model.tokenizer).vocab_size)
+    gen = torch.Generator().manual_seed(9)
+    return {name: {k: torch.randn(v.shape[:1] + v.shape[2:], generator=gen)
+                   * (mcfg.d_model**-0.5 if k.endswith("_a") else 4 * ec.lora_rank**-0.5)
+                   for k, v in init_lora_stack(mcfg, ec.max_loras, ec.lora_rank, "meta").items()}
+            for name in ("a", "b")}
 
 
 def _prompts() -> list:
@@ -58,10 +82,11 @@ def _prompts() -> list:
             [:100] for i in range(16)]
 
 
-def _burst(submit) -> tuple:
-    """The 16 prompts submitted at once: (requests, wall s)."""
+def _burst(submit, loras: list) -> tuple:
+    """The 16 prompts submitted at once, prompt i on adapter ``loras[i]``:
+    (requests, wall s)."""
     t0 = time.perf_counter()
-    reqs = [submit(p) for p in _prompts()]
+    reqs = [submit(p, a) for p, a in zip(_prompts(), loras)]
     for r in reqs:
         if not r.done.wait(600) or r.error is not None:
             raise RuntimeError(f"a request failed: {r.error!r}")
@@ -119,6 +144,8 @@ def main(argv=None) -> None:
                          "changes the tokens) or well-conditioned ones through a checkpoint")
     ap.add_argument("--cpu", action="store_true", help="gloo ranks on the CPU")
     ap.add_argument("--no-engine", action="store_true")
+    ap.add_argument("--adapters", action="store_true",
+                    help="two adapters loaded, the prompts on none, a, b in turn")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else None
     greedy = SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
@@ -145,12 +172,19 @@ def _run(args, runs, ckpt, device, greedy) -> None:
     from ray_tpu_torch.llm.gang import GangLLMServer
 
     first = None
+    adapters = (_adapters(_config(args.model, 1, 1, args.dtype, adapters=True))
+                if args.adapters else {})
+    loras = [((None, "a", "b")[i % 3] if args.adapters else None) for i in range(16)]
     if not args.no_engine:
-        eng = TorchEngine(_config(args.model, 1, 1, args.dtype, ckpt), device)
+        eng = TorchEngine(_config(args.model, 1, 1, args.dtype, ckpt, args.adapters), device)
         try:
+            if args.adapters:
+                for name, w in adapters.items():
+                    eng.add_lora(name, w)
             eng.generate("warm up " * 12, sampling_params=greedy)
             stats0 = eng.get_stats()
-            reqs, wall = _burst(lambda p: eng.submit(p, sampling_params=greedy))
+            reqs, wall = _burst(lambda p, a: eng.submit(p, sampling_params=greedy, lora=a),
+                                loras)
             st = eng.get_stats()
         finally:
             eng.shutdown()
@@ -158,21 +192,25 @@ def _run(args, runs, ckpt, device, greedy) -> None:
         # each timed program is decode_steps steps
         timed = st["decode_programs_timed"] - stats0["decode_programs_timed"]
         device_ms = st["decode_device_ms"] - stats0["decode_device_ms"]
-        row = {"config": "engine", "ranks": 1, "out_tok_per_s": 16 * 64 / wall, "wall_s": wall,
+        row = {"config": "engine", "ranks": 1, "adapters": args.adapters,
+               "out_tok_per_s": 16 * 64 / wall, "wall_s": wall,
                "ttft_ms": _ms_stats([r.first_token_t - r.submitted_t for r in reqs]),
                "decode_step_device_ms": (device_ms / (timed * DECODE_STEPS)
                                          if timed else None)}
         print(json.dumps(row), flush=True)
     for sp, tp in runs:
-        cfg = _config(args.model, tp, sp, args.dtype, ckpt)
+        cfg = _config(args.model, tp, sp, args.dtype, ckpt, args.adapters)
         t0 = time.perf_counter()
         gang = GangLLMServer(cfg, num_workers=tp * sp, device=device)
         startup = time.perf_counter() - t0
         try:
+            if args.adapters:
+                for name, w in adapters.items():
+                    gang.add_lora(name, w)
             gang.submit("warm up " * 12, greedy).done.wait(600)
             gang.rank_counts(reset=True)
             n_plans = len(gang.plan_times())
-            reqs, wall = _burst(lambda p: gang.submit(p, greedy))
+            reqs, wall = _burst(lambda p, a: gang.submit(p, greedy, a), loras)
             counts = gang.rank_counts()
             plans = np.asarray(gang.plan_times()[n_plans:])
         finally:
@@ -183,6 +221,7 @@ def _run(args, runs, ckpt, device, greedy) -> None:
             first = tokens
         row = {
             "config": f"sp{sp}-tp{tp}", "ranks": tp * sp, "mesh": gang.gang_info["mesh"],
+            "adapters": args.adapters,
             "out_tok_per_s": 16 * 64 / wall, "wall_s": wall,
             "ttft_ms": _ms_stats([r.first_token_t - r.submitted_t for r in reqs]),
             "gang_startup_s": startup, "rank_startup_s": gang.gang_info["rank_startup_s"],

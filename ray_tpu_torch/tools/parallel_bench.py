@@ -5,7 +5,9 @@
 
 For each rank count, ``graft_entry.dryrun_multichip`` runs every mesh of
 the sweep (``graft_entry.mesh_sweep``: JAX's ``_mesh_sweep`` at 8k ranks,
-halved to fit 1, 2 or 4) on one NCCL rank a card, at the bench widths
+halved to fit 1, 2 or 4, then the tool's own ``EP_SP_MESH``, fitted the
+same way) on one NCCL rank a
+card, at the bench widths
 (``bench.py:31-47``: 16 layers, the pp and MoE meshes 4 layers and 4
 experts; ``graft_entry.conditioned_params``, seed 0) with 4 x 2048
 tokens a data shard: one step, then ``--steps``
@@ -25,9 +27,14 @@ from __future__ import annotations
 import argparse
 import json
 
+# the tool's own mesh after the sweep's, at 8 ranks (fitted to n as the
+# sweep's are): MoE over ep and sp together, routed in JAX's flat token chunks
+EP_SP_MESH = ("dp2-sp2-ep2-moe", {"dp": 2, "sp": 2, "ep": 2},
+              {"attention": "ring", "moe_experts": 4, "moe_top_k": 2})
+
 
 def main(argv=None) -> None:
-    from ray_tpu_torch.graft_entry import dryrun_multichip
+    from ray_tpu_torch.graft_entry import dryrun_multichip, fit_mesh
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, nargs="+", default=[1, 4])
@@ -37,10 +44,12 @@ def main(argv=None) -> None:
     ap.add_argument("--meshes", nargs="*", help="labels of the sweep to run (default: all)")
     args = ap.parse_args(argv)
     first: dict = {}
+    label, sizes, kw = EP_SP_MESH
     for n in args.ranks:
+        extra = [(label, fit_mesh(label, sizes, n).sizes(), kw)]
         recs = dryrun_multichip(n, "cpu" if args.cpu else None, widths=args.widths,
                                 init="conditioned", timed_steps=args.steps, reference=n > 1,
-                                meshes=args.meshes, timeout_s=1800)
+                                meshes=args.meshes, extra_meshes=extra, timeout_s=1800)
         for r in recs:
             row = {"ranks": n, "label": r["label"],
                    "mesh": {a: s for a, s in r["mesh"].items() if s > 1},

@@ -639,11 +639,14 @@ def test_gang_sp2_greedy_equals_jax_engine(checkpoint, jax_greedy):
 
 def test_torch_engine_tp2_front_serves_through_llm_server(checkpoint, jax_greedy):
     """``TorchEngine`` on a tp2 config is a gang of two ranks behind the
-    engine's surface, and ``LLMServer`` serves it unchanged."""
+    engine's surface, and ``LLMServer`` serves it unchanged, adapters
+    included (``tests/test_torch_gang_lora.py`` holds their tokens to
+    JAX's)."""
     from ray_tpu_torch.llm import LLMServer, SamplingParams, TorchEngine
     from ray_tpu_torch.llm.gang import GangEngine
 
-    server = LLMServer(_tiny_config(checkpoint[0], tensor_parallel_degree=2), device="cpu")
+    server = LLMServer(_tiny_config(checkpoint[0], tensor_parallel_degree=2, max_loras=1,
+                                    lora_rank=4), device="cpu")
     try:
         assert isinstance(server.engine, GangEngine)
         server.check_health()
@@ -654,8 +657,11 @@ def test_torch_engine_tp2_front_serves_through_llm_server(checkpoint, jax_greedy
             PROMPTS[1], sampling_params=SamplingParams(max_tokens=8, ignore_eos=True)))
         assert [s["token_id"] for s in stream] == jax_greedy["tp2"][1]
         assert server.stats()["gang"]["mesh"]["tp"] == 2
-        with pytest.raises(NotImplementedError, match="LoRA"):
-            server.load_lora("a", {})
+        assert server.load_lora("a", {k: v[:, 1] for k, v in _loras(seed=5).items()})
+        assert server.list_loras() == ["a"]
+        adapted = server.completions({"prompt": PROMPTS[0], "max_tokens": 8, "ignore_eos": True,
+                                      "_lora": "a"})
+        assert adapted["usage"]["completion_tokens"] == 8
     finally:
         server.engine.shutdown()
     assert TorchEngine.__new__(TorchEngine, _tiny_config()).__class__ is TorchEngine

@@ -24,8 +24,6 @@ from ray_tpu.llm import JaxEngine
 from ray_tpu.llm import config as jcfgmod
 from ray_tpu_torch.llm import config as tcfgmod
 from ray_tpu_torch.llm import (
-    EngineConfig,
-    LLMConfig,
     LLMServer,
     SamplingParams,
     TorchEngine,
@@ -265,25 +263,6 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
         LLMServer(cfg)
 
 
-def test_later_slices_raise_not_implemented():
-    """What the port still lacks: LoRA adapters on a tensor/sequence-parallel
-    engine, a gang of rank processes (the JAX package's GangLLMServer has
-    none either). Tensor/sequence-parallel serving itself came with the
-    gang-serving slice (tests/test_torch_gang.py); checkpoint loading and
-    LoRA adapters from a path with the Train layer
-    (tests/test_torch_checkpoint.py)."""
-    small = dict(max_seq_len=32, prefill_buckets=(32,))
-    for kw in ({"tensor_parallel_degree": 2}, {"sequence_parallel_degree": 2}):
-        eng = TorchEngine(LLMConfig(engine=EngineConfig(**small, **kw)), device="cpu")
-        try:
-            with pytest.raises(NotImplementedError, match="LoRA adapters on a tensor/seq"):
-                eng.add_lora("a", {})
-            with pytest.raises(NotImplementedError, match="LoRA adapters on a tensor/seq"):
-                eng.submit("hi", lora="a")
-        finally:
-            eng.shutdown()
-
-
 # ---- import boundary ---------------------------------------------------------
 
 _FORBIDDEN = ("jax", "jaxlib", "optax", "ray_tpu")
@@ -305,6 +284,8 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert REPO / "ray_tpu_torch" / "ops" / "quant.py" in files
     assert REPO / "ray_tpu_torch" / "llm" / "spmd.py" in files
     assert REPO / "ray_tpu_torch" / "llm" / "gang.py" in files
+    assert REPO / "ray_tpu_torch" / "llm" / "disagg.py" in files
+    assert REPO / "ray_tpu_torch" / "llm" / "batch.py" in files
     assert REPO / "ray_tpu_torch" / "rllib" / "core" / "learner.py" in files
     bad = []
     for path in files:
