@@ -4,7 +4,8 @@
 and decode disaggregated, and offline batch inference), its
 training path (dense and MoE, remat "full" and "dots"), its int8 weight
 path, the entry() twin, the Train layer's train -> checkpoint -> serve
-path, and the RL stack (ray_tpu_torch.rllib).
+path, and the RL stack (ray_tpu_torch.rllib), its runner and learner
+processes included.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -161,6 +162,23 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 both; one PPO update's kernels and the device's busy share
                 (profiler). Every kernel counter set to 0 before and read
                 after: all 0 (no TPU kernel lies on the RL path).
+ 18. rllib_remote — RLlib's remote half (rllib_bench.remote_parts): IMPALA
+                and APPO on CartPole-v1 at tests/test_rllib.py:270-328's
+                settings, 25 iterations, 2 runner processes x 4 envs x 50
+                steps feeding the V-trace update on the card (2 samples in
+                flight reported every iteration; returns up by > 20 and >
+                25; env steps/s, update ms by CUDA events, and the share of
+                each iteration spent waiting for a fragment, which must stay
+                under 0.4: the runners sample while the card updates); PPO
+                with a runner process SIGKILLed and replaced (>= 1 healthy,
+                then 2, a new pid; the replacement's seconds); a learner
+                process on the card (num_learners=1) against a local learner
+                from the same state within 1e-5 after one update_from_batch,
+                and a shifted-actions control that must fail it (round trip
+                vs local ms); SAC on Reach-v0 over 2 runner processes (replay
+                >= 700, log_alpha kept by save/restore). Counters 0, in
+                this process and in the learner process (read there); no
+                process of the phase left after each stop.
 Then the kernels summary line, the nvidia-smi line, and, last,
 {"ok": true, "device": {...}}.
 
@@ -2141,6 +2159,67 @@ def phase_rllib(torch, card: str) -> dict:
     return out
 
 
+# IMPALA/APPO's share of an iteration spent waiting for a fragment: with
+# sampling in series with the update it would be 0.46-0.67 (a 200-step
+# fragment takes a runner 4.6-7.2 ms, the update 3.5-5.5 ms on an H100)
+WAIT_SHARE_LIMIT = 0.4
+
+
+def phase_rllib_remote(torch, card: str) -> dict:
+    """RLlib's remote half on the card: IMPALA and APPO's asynchronous
+    pipeline (runner processes on the CPU, the V-trace update on the card
+    in this process), a runner process killed and replaced, a learner
+    process on the card held against a local learner with a control, and
+    SAC over runner processes through save and restore; the kernel
+    counters set to 0 before and read after, and no process of the phase
+    left after each ``stop``."""
+    from ray_tpu_torch.ops import add_launch_counts, launch_counts
+    from ray_tpu_torch.tools import rllib_bench as rb
+
+    add_launch_counts({k: -v for k, v in launch_counts().items()})
+    parts = rb.remote_parts(None, 25)
+    # this process's counts, and the learner process's (it started at 0)
+    learner = parts["remote_learner"]["process_launches"]
+    launches = {k: v + learner[k] for k, v in launch_counts().items()}
+    out = {"phase": "rllib_remote", "card": card, **parts, "launches": launches,
+           "wait_share_limit": WAIT_SHARE_LIMIT}
+    emit(out)
+    for name, gain in (("impala", 20), ("appo", 25)):
+        run = parts[name]
+        # the result key only: every _next_batch refills the pipeline
+        if any(n != 2 for n in run["in_flight"]):
+            raise AssertionError(f"rllib_remote: {name} samples in flight {run['in_flight']}")
+        # the overlap: waiting for fragments takes under half of an iteration
+        if not run["wait_share"] < WAIT_SHARE_LIMIT:
+            raise AssertionError(f"rllib_remote: {name} waits {run['wait_share']:.3f} of an "
+                                 f"iteration for fragments (limit {WAIT_SHARE_LIMIT})")
+        first, last = run["return_first"], run["return_last"]
+        if first is None or last is None or not last > first + gain:
+            raise AssertionError(f"rllib_remote: {name} did not improve by > {gain}: "
+                                 f"{first} -> {last}")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"rllib_remote: non-finite {name} loss: {run['losses']}")
+        if run["update_tensors_on"] != ["cuda"]:
+            raise AssertionError(f"rllib_remote: {name} update on {run['update_tensors_on']}")
+    rep = parts["replacement"]
+    if not (rep["healthy"][1] >= 1 and rep["healthy"][2] == 2 and rep["new_pid"] != rep["old_pid"]):
+        raise AssertionError(f"rllib_remote: the killed runner was not replaced: {rep}")
+    rl = parts["remote_learner"]
+    if not rl["ok"] or rl["remote_tensors_on"] != ["cuda"]:
+        raise AssertionError(f"rllib_remote: the learner process disagrees: {rl}")
+    if rl["control_ok"]:
+        raise AssertionError(f"rllib_remote: the shifted-actions control passed: {rl}")
+    sac = parts["sac"]
+    if sac["replay_size"] < 700 or not sac["log_alpha_equal"]:
+        raise AssertionError(f"rllib_remote: SAC over runner processes: {sac}")
+    left = {name: p["children_left"] for name, p in parts.items() if p["children_left"]}
+    if left:
+        raise AssertionError(f"rllib_remote: processes left after stop: {left}")
+    if any(launches.values()):
+        raise AssertionError(f"rllib_remote: kernel launches on the RL path: {launches}")
+    return out
+
+
 def phase_train_serve(torch, card: str, train: dict) -> dict:
     """Train -> checkpoint -> serve at the bench width, through the entry
     points a user calls.
@@ -2395,6 +2474,7 @@ def main() -> int:
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
+    rllib_remote = timed_phase("rllib_remote", phase_rllib_remote)
     emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
@@ -2443,7 +2523,8 @@ def main() -> int:
                              # the gang's rank process, its own counters
                              "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],
-                             "rllib": rllib["launches"]["rmsnorm"]},
+                             "rllib": rllib["launches"]["rmsnorm"],
+                             "rllib_remote": rllib_remote["launches"]["rmsnorm"]},
         "max_abs_err": k["max_abs_err"],
         "ms": decode["kernel_us"] / 1e3,
         "plain_ms": decode["plain_us"] / 1e3,
@@ -2469,7 +2550,8 @@ def main() -> int:
                              "train_serve": train_serve["launches"][name],
                              # the sweep's first step on each mesh, counted in the rank
                              "parallel": parallel["launches"][key],
-                             "rllib": rllib["launches"][name]},
+                             "rllib": rllib["launches"][name],
+                             "rllib_remote": rllib_remote["launches"][name]},
         "max_abs_err": k["attention"]["max_abs_err"],
         "ms": bench[key]["kernel_us"] / 1e3,
         "plain_ms": bench[key]["plain_us"] / 1e3,
@@ -2490,7 +2572,8 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/quant.cu",
         "replaces": replaces,
         "launches": quant["launches"][name],
-        "launches_by_path": {"quant": quant["launches"][name], "rllib": rllib["launches"][name]},
+        "launches_by_path": {"quant": quant["launches"][name], "rllib": rllib["launches"][name],
+                             "rllib_remote": rllib_remote["launches"][name]},
         "max_abs_err": err,
         "ms": mlp_up[key]["kernel_us"] / 1e3,
         "plain_ms": mlp_up[key]["plain_us"] / 1e3,

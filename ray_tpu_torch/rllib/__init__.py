@@ -2,11 +2,14 @@
 
 The reference's new-stack quartet: RLModule (a ``torch.nn.Module``) /
 TorchLearner / LearnerGroup / EnvRunnerGroup, and the algorithms PPO,
-APPO, IMPALA, DQN, BC, MARWIL and SAC, in one process: the learner on the
-card unless ``config.build(device="cpu")``, env runners on the CPU. The
-JAX package's remote runners and learners, IMPALA's asynchronous pipeline
-and ``as_trainable`` raise ``NotImplementedError`` (they need ray_tpu's
-runtime, which the port does not import).
+APPO, IMPALA, DQN, BC, MARWIL and SAC: the learner on the card unless
+``config.build(device="cpu")``, env runners on the CPU. The JAX package's
+actors are the port's own spawned processes (``_private/process_actor.py``):
+remote env runners (``num_env_runners > 0``, replaced when they fail),
+IMPALA and APPO's asynchronous pipeline over them, remote learners
+(``num_learners > 0``, one card each) and SAC's runners.
+``Algorithm.as_trainable`` raises ``NotImplementedError``: Tune is not
+ported.
 """
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig

@@ -5,10 +5,12 @@ Counterpart of ``ray_tpu/rllib/algorithms/algorithm.py`` (reference:
 ``training_step``; ``algorithm_config.py``, the fluent builder
 ``.environment().training().env_runners().learners()``). The config
 builder is a copy. ``config.build(device=None)`` puts the learner on the
-card unless the caller asks for the CPU; env runners sample on the CPU.
-``save`` / ``restore`` go through ``train/checkpoint.py``, so a JAX
-checkpoint restores here. One process: remote runners, remote learners
-and ``as_trainable`` raise.
+card unless the caller asks for the CPU; env runners sample on the CPU,
+in this process or, with ``num_env_runners > 0``, in runner processes;
+``num_learners > 0`` puts each learner in a process of its own, on a card
+of its own (``_private/process_actor.py``). ``stop`` ends those
+processes. ``save`` / ``restore`` go through ``train/checkpoint.py``, so a
+JAX checkpoint restores here. ``as_trainable`` raises: Tune is not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.rllib.core.learner_group import RUNTIME_QUESTION, LearnerGroup
+from ray_tpu_torch.rllib.core.learner import on_device
+from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.env.env_runner import EnvRunnerGroup, env_spec
 from ray_tpu_torch.train.checkpoint import Checkpoint, restore_state_dict
@@ -284,9 +287,23 @@ class Algorithm:
     def training_step(self) -> dict:
         raise NotImplementedError
 
+    def _pull_params(self):
+        """For an algorithm that keeps parameters of its own and sets them
+        on the learner group after each iteration (IMPALA, APPO, BC,
+        MARWIL): the group's weights as those parameters on its device,
+        with fresh moments of its ``optimizer``. At the start, and after a
+        restore, which fills the group (stale ones would overwrite it)."""
+        self._params = on_device(self.learner_group.get_weights(), self.device)
+        self._opt_state = self.optimizer.init(self._params)
+
     def stop(self):
-        """One process and no actors: nothing to release (the JAX
-        package's ``stop`` kills its remote runners and learners)."""
+        """End the runner and learner processes (none in local mode)."""
+        self.env_runner_group.shutdown()
+        if self.is_multi_agent:
+            for lg in self.learner_groups.values():
+                lg.shutdown()
+        else:
+            self.learner_group.shutdown()
 
     # -- checkpointing (Checkpointable contract) ----------------------------
 
@@ -335,9 +352,11 @@ class Algorithm:
 
     @classmethod
     def as_trainable(cls, base_config: AlgorithmConfig):
-        """The JAX package's Tune adapter. Tune is not ported."""
+        """The JAX package's Tune adapter. Tune is not ported: it is a part
+        of ray_tpu's runtime, which the port neither imports nor copies."""
         raise NotImplementedError(
-            f"{cls.__name__}.as_trainable: Tune is not ported; it waits on {RUNTIME_QUESTION}"
+            f"{cls.__name__}.as_trainable: Tune is not ported (it is ray_tpu's runtime, "
+            "which the port does not import)"
         )
 
 

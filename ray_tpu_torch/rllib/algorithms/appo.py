@@ -10,7 +10,8 @@ the target-network half). The update changes from IMPALA's:
   pi_current/pi_behavior against those V-trace advantages.
 - Optionally a KL(target || current) penalty (``use_kl_loss``).
 
-As for IMPALA, only the synchronous path is ported.
+It runs IMPALA's asynchronous pipeline over runner processes, or its
+synchronous path with ``num_env_runners=0``.
 """
 
 from __future__ import annotations
@@ -108,7 +109,7 @@ class APPO(IMPALA):
         self._target_params = None
         self._updates_since_target = 0
 
-    def _result(self, loss: float, metrics: dict) -> dict:
-        out = super()._result(loss, metrics)
+    def _result(self, losses: list, metrics_list: list) -> dict:
+        out = super()._result(losses, metrics_list)
         out["learner"]["target_updates_pending"] = self._updates_since_target
         return out

@@ -111,14 +111,18 @@ class BC(Algorithm):
         super().__init__(config, device)
         if config.dataset is None:
             raise ValueError("BCConfig.offline_data(dataset) is required")
-        # the learner's module, updated in place by this algorithm's update
-        self._params = self.learner_group.learner.module.params
         self.optimizer = adam(config.lr)
-        self._opt_state = self.optimizer.init(self._params)
+        self._pull_params()
         self._update_fn = self._build_update()
         self._rng = np.random.default_rng(config.seed)
         self._rows = self._load_rows(config.dataset)
         self._dev_rows = to_device(self._rows, self.device)
+
+    def set_state(self, state: dict):
+        """The parameters come back from the restored learner group; the
+        optimizer moments restart fresh, as IMPALA's do."""
+        super().set_state(state)
+        self._pull_params()
 
     @staticmethod
     def _load_rows(dataset) -> dict:
@@ -164,6 +168,7 @@ class BC(Algorithm):
             idx = torch.from_numpy(idx).to(self.device)
             mb = {k: v[idx] for k, v in self._dev_rows.items()}
             _, self._opt_state, loss = self._update_fn(self._params, self._opt_state, mb)
+        self.learner_group.set_weights(self._params)
 
         result: dict[str, Any] = {
             "learner": {"imitation_loss": float(loss)},

@@ -3,11 +3,12 @@
 
 Double-DQN with a target network and a uniform replay buffer:
 training_step = sample fragments -> append real transitions to replay ->
-K Q-updates on minibatches (on the learner's device, in place on the
-learner's parameters) -> periodic target sync. Exploration: the env runner
-samples actions from a softmax over the Q-head (Boltzmann exploration);
-the epsilon schedule is computed for parity/telemetry with the
-reference's epsilon-greedy default. ``ReplayBuffer`` is a copy (numpy).
+K Q-updates on minibatches (on the algorithm's device, on the learner
+group's weights, which are set back after them) -> periodic target sync.
+Exploration: the env runner samples actions from a softmax over the
+Q-head (Boltzmann exploration); the epsilon schedule is computed for
+parity/telemetry with the reference's epsilon-greedy default.
+``ReplayBuffer`` is a copy (numpy).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import adam, grad_step, take, to_device
+from ray_tpu_torch.rllib.core.learner import adam, grad_step, on_device, take, to_device
 from ray_tpu_torch.rllib.core.rl_module import forward
 
 
@@ -88,8 +89,9 @@ class DQN(Algorithm):
         self._rng = np.random.default_rng(config.seed)
         obs_dim = self.module_spec.observation_dim
         self.replay = ReplayBuffer(config.replay_buffer_capacity, obs_dim)
-        # online net: the learner's module, updated in place; target here
-        self._params = self.learner_group.learner.module.params
+        # online net: the learner group's weights, taken each iteration and
+        # set back after its updates (the group may be processes); target here
+        self._params = on_device(self.learner_group.get_weights(), self.device)
         self._target = _clone(self._params)
         self._updates = 0
         self.optimizer = adam(config.lr)
@@ -144,7 +146,7 @@ class DQN(Algorithm):
 
         stats = {"epsilon": eps}
         if self.replay.size >= self.config.num_steps_sampled_before_learning_starts:
-            params = self._params
+            params = self._params = on_device(weights, self.device)
             if self._opt_state is None:
                 self._opt_state = self.optimizer.init(params)
             loss = torch.zeros(())
@@ -156,6 +158,7 @@ class DQN(Algorithm):
                 self._updates += 1
                 if self._updates % self.config.target_network_update_freq == 0:
                     self._target = _clone(params)
+            self.learner_group.set_weights(params)
             stats["td_loss"] = float(loss)
         return {
             "env_runners": env_metrics,

@@ -1,12 +1,23 @@
-"""IMPALA: the V-trace-corrected learner.
+"""IMPALA: asynchronous sampling with a V-trace-corrected learner.
 
 Counterpart of ``ray_tpu/rllib/algorithms/impala.py`` (reference:
-``rllib/algorithms/impala/impala.py:599`` and the V-trace importance
-weighting of Espeholt et al., ``rllib/algorithms/impala/vtrace``). Only the
-synchronous path is ported (the JAX package's ``_training_step_sync``,
-``num_env_runners=0``): sample a fragment locally, one V-trace update on the
-learner's device. The asynchronous pipeline keeps one sample in flight per
-remote runner, actors of ray_tpu's runtime, and raises here.
+``rllib/algorithms/impala/impala.py:599``, the async sample -> learner
+pipeline, and the V-trace importance weighting of Espeholt et al.,
+``rllib/algorithms/impala/vtrace``).
+
+The pipeline is the JAX package's: one outstanding ``sample`` per runner
+process (``env/env_runner.py:EnvRunnerGroup``). ``training_step`` waits
+for whichever runner finishes first, resubmits it AT ONCE (pushing the
+current weights every ``broadcast_interval`` batches), and only then runs
+the V-trace update on the algorithm's device (the card unless
+``device="cpu"``), so every update overlaps the runners' sampling. The
+lag that makes is what V-trace's clipped ratios correct for. With
+``num_env_runners=0`` it samples locally, one update per fragment.
+
+The algorithm's parameters are its own tensors, taken from the learner
+group at the start and after a restore and set back on it after every
+iteration, as in the JAX package; the runners get host copies, made once
+per push (one for all runners at the first submit).
 
 The reverse ``lax.scan`` of the targets is a loop over T on detached
 tensors: the targets enter the loss only under ``stop_gradient``.
@@ -14,12 +25,15 @@ tensors: the targets enter the loss only under ``stop_gradient``.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch._private.process_actor import ActorError, get, wait
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import adam, grad_step, take, to_device
-from ray_tpu_torch.rllib.core.learner_group import remote_not_ported
+from ray_tpu_torch.rllib.core.learner import adam, grad_step, host_copy, take, to_device
 from ray_tpu_torch.rllib.core.rl_module import forward
 
 
@@ -34,6 +48,9 @@ class IMPALAConfig(AlgorithmConfig):
         self.vtrace_clip_pg_rho_threshold = 1.0
         self.entropy_coeff = 0.01
         self.vf_loss_coeff = 0.5
+        # batches consumed per training_step and weight-push cadence
+        self.num_batches_per_iteration = 8
+        self.broadcast_interval = 1
         self._emit_sequences = True
 
 
@@ -63,17 +80,13 @@ def vtrace_targets(values, next_values, rewards, logp_behavior, logp_target, end
 
 class IMPALA(Algorithm):
     def __init__(self, config: IMPALAConfig, device=None):
-        if config.num_env_runners > 0:
-            raise remote_not_ported(
-                f"{type(self).__name__}'s asynchronous pipeline over remote env runners "
-                "(num_env_runners > 0; set 0 for the synchronous path)")
         super().__init__(config, device)
-        # the learner's module, updated in place by this algorithm's update
-        self._params = self.learner_group.learner.module.params
         self.optimizer = adam(config.lr, grad_clip=config.grad_clip)
-        self._opt_state = self.optimizer.init(self._params)
+        self._pull_params()
         self._update_fn = self._build_update()
         self._batches_consumed = 0
+        # pending sample -> runner index: the one in flight per runner
+        self._inflight: dict = {}
 
     # -- v-trace update ------------------------------------------------------
 
@@ -114,37 +127,98 @@ class IMPALA(Algorithm):
 
         return update
 
-    def training_step(self) -> dict:
-        """Local sampling, one V-trace update per fragment (the JAX
-        package's ``_training_step_sync``)."""
-        runner = self.env_runner_group.local_runner
-        runner.set_weights(self.learner_group.get_weights())
-        out = runner.sample()
-        _, self._opt_state, loss, _ = self._update_fn(
-            self._params, self._opt_state, to_device(out["seq"], self.device)
-        )
-        self._batches_consumed += 1
-        return self._result(float(loss), out["metrics"])
+    # -- async pipeline ------------------------------------------------------
 
-    def _result(self, loss: float, metrics: dict) -> dict:
+    def _runners(self) -> list:
+        return self.env_runner_group.runners
+
+    def _submit(self, i: int, weights: Optional[dict] = None):
+        """Send runner ``i`` a sample, after ``weights`` (host copies) when
+        given."""
+        runner = self._runners()[i]
+        if weights is not None:
+            runner.call("set_weights", weights)
+        self._inflight[runner.call("sample")] = i
+
+    def _next_batch(self, timeout: float = 300.0) -> Optional[dict]:
+        """Async consume: wait for ANY runner, resubmit it at once (so it
+        samples during the coming update), return its output."""
+        for _ in range(3):
+            ready, _ = wait(list(self._inflight), num_returns=1, timeout=timeout)
+            if not ready:
+                raise TimeoutError("no env-runner batch within timeout")
+            i = self._inflight.pop(ready[0])
+            push = self._batches_consumed % self.config.broadcast_interval == 0
+            try:
+                out = get(ready[0])
+            except ActorError:
+                # fault tolerance: replace the runner, keep the pipeline full
+                self.env_runner_group.replace_runner(i)
+                self._submit(i, host_copy(self._params))
+                continue
+            self._submit(i, host_copy(self._params) if push else None)
+            return out
+        return None
+
+    def _update(self, out: dict) -> float:
+        _, self._opt_state, loss, _ = self._update_fn(
+            self._params, self._opt_state, to_device(out["seq"], self.device))
+        self._batches_consumed += 1
+        return float(loss)
+
+    def training_step(self) -> dict:
+        if not self._runners():
+            return self._training_step_sync()
+        if not self._inflight:
+            weights = host_copy(self._params)
+            for i in range(len(self._runners())):
+                self._submit(i, weights)
+        losses, metrics_list = [], []
+        for _ in range(self.config.num_batches_per_iteration):
+            out = self._next_batch()
+            if out is None:
+                continue
+            losses.append(self._update(out))
+            metrics_list.append(out["metrics"])
+        self.learner_group.set_weights(self._params)
+        return self._result(losses, metrics_list)
+
+    def _training_step_sync(self) -> dict:
+        """``num_env_runners=0``: local sampling, one V-trace update."""
+        runner = self.env_runner_group.local_runner
+        runner.set_weights(host_copy(self._params))
+        out = runner.sample()
+        loss = self._update(out)
+        self.learner_group.set_weights(self._params)
+        return self._result([loss], [out["metrics"]])
+
+    def _result(self, losses: list, metrics_list: list) -> dict:
+        returns = [m["episode_return_mean"] for m in metrics_list
+                   if not np.isnan(m["episode_return_mean"])]
         return {
             "learner": {
-                "total_loss": loss,
+                "total_loss": float(np.mean(losses)) if losses else float("nan"),
                 "num_batches_consumed_lifetime": self._batches_consumed,
             },
-            "episode_return_mean": metrics["episode_return_mean"],
-            "num_env_steps_sampled": metrics["num_env_steps"],
+            "episode_return_mean": float(np.mean(returns)) if returns else float("nan"),
+            "num_env_steps_sampled": sum(m["num_env_steps"] for m in metrics_list),
+            "num_in_flight_samples": len(self._inflight),
         }
 
     def set_state(self, state: dict):
-        """The learner's weights come back in place; the optimizer moments
-        restart fresh, as the JAX package's do (its pytree checkpoint keeps
-        no IMPALA optimizer state)."""
+        """The parameters come back from the learner group (each iteration
+        pushes them there, so stale ones would wipe a restored checkpoint);
+        the optimizer moments restart fresh, as the JAX package's do (its
+        pytree checkpoint keeps no IMPALA optimizer state)."""
         super().set_state(state)
-        self._opt_state = self.optimizer.init(self._params)
+        self._pull_params()
         self._batches_consumed = int(state.get("batches_consumed", 0))
 
     def get_state(self) -> dict:
         state = super().get_state()
         state["batches_consumed"] = self._batches_consumed
         return state
+
+    def stop(self):
+        self._inflight.clear()
+        super().stop()

@@ -11,7 +11,9 @@ alpha step and the Polyak averaging, in that order.
 The normal draws of ``sample_action`` come from an explicit
 ``torch.Generator`` or are passed in (``eps``), so a test can feed JAX's
 draws. The actor's env runner samples on the CPU, with a CPU copy of the
-actor's weights.
+actor's weights: in this process, or with ``num_env_runners > 0`` in runner
+processes seeded ``seed + i`` (``_private/process_actor.py``), each
+collecting a fragment per iteration.
 """
 
 from __future__ import annotations
@@ -23,10 +25,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch._private.process_actor import ProcessActor, get, start_all
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.algorithms.dqn import ReplayBuffer
-from ray_tpu_torch.rllib.core.learner import adam, grad_step, to_device
-from ray_tpu_torch.rllib.core.learner_group import remote_not_ported
+from ray_tpu_torch.rllib.core.learner import adam, grad_step, host_copy, to_device
 from ray_tpu_torch.rllib.env.continuous import make_continuous_env
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -171,8 +173,6 @@ class SAC(Algorithm):
 
         if config.env is None:
             raise ValueError("config.environment(env=...) is required")
-        if config.num_env_runners > 0:
-            raise remote_not_ported("SAC's remote env runners (num_env_runners > 0)")
         self.config = config
         self.device = resolve_device(device)
         self.iteration = 0
@@ -183,7 +183,14 @@ class SAC(Algorithm):
         hidden = tuple(config.model.get("hidden", (64, 64)))
         self.n_layers = len(hidden) + 1
         self._rng = np.random.default_rng(config.seed)
-        self._local = ContinuousEnvRunner(config.env, hidden, config.seed)
+        self._local, self._runners = None, []
+        if config.num_env_runners > 0:
+            self._runners = start_all([
+                ProcessActor(ContinuousEnvRunner, (config.env, hidden), {"seed": config.seed + i},
+                             name=f"sac-runner-{i}")
+                for i in range(config.num_env_runners)])
+        else:
+            self._local = ContinuousEnvRunner(config.env, hidden, config.seed)
 
         gen = torch.Generator().manual_seed(config.seed)
         q_sizes = [self.obs_dim + self.act_dim, *hidden, 1]
@@ -289,8 +296,13 @@ class SAC(Algorithm):
     # -- sampling ------------------------------------------------------------
 
     def _collect(self, random_actions: bool):
-        self._local.set_weights(self._state["actor"])
-        return [self._local.collect(self.config.rollout_fragment_length, random_actions)]
+        n = self.config.rollout_fragment_length
+        if self._local is not None:
+            self._local.set_weights(self._state["actor"])
+            return [self._local.collect(n, random_actions)]
+        weights = host_copy(self._state["actor"])
+        get([r.call("set_weights", weights) for r in self._runners])
+        return get([r.call("collect", n, random_actions) for r in self._runners])
 
     def training_step(self) -> dict:
         warmup = (
@@ -356,6 +368,10 @@ class SAC(Algorithm):
         return float(np.mean(returns))
 
     # -- lifecycle -----------------------------------------------------------
+
+    def stop(self):
+        for r in self._runners:
+            r.kill()
 
     def get_state(self) -> dict:
         def host(v):

@@ -126,6 +126,18 @@ def ppo_loss(params, batch: dict, arch, hp: dict):
     return total, stats
 
 
+def on_device(weights: dict, device) -> dict:
+    """Host weights as new tensors on ``device``: an algorithm's own
+    parameters, taken from its learner group."""
+    return {k: torch.tensor(np.asarray(v), device=device) for k, v in weights.items()}
+
+
+def host_copy(params: dict) -> dict:
+    """One numpy copy of each tensor: what goes to a learner group or a
+    runner process."""
+    return {k: v.detach().to("cpu", copy=True).numpy() for k, v in params.items()}
+
+
 def to_device(arrays: dict, device) -> dict:
     """Host arrays as tensors on ``device`` (integer columns as int64)."""
     out = {}
@@ -243,3 +255,9 @@ class TorchLearner:
     def set_state(self, state: dict):
         self.set_weights(state["weights"])
         self.opt_state = opt_state_from_host(state["opt_state"], self.device)
+
+    def placement(self) -> list:
+        """The device types holding the parameters and Adam's moments."""
+        tensors = [*self.module.params.values(), *self.opt_state["mu"].values(),
+                   *self.opt_state["nu"].values()]
+        return sorted({t.device.type for t in tensors})

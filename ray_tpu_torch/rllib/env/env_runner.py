@@ -8,8 +8,13 @@ in the reference too (its docstring: "chips stay dedicated to the
 learner"), one small forward per env step over numpy observations. The
 learner alone holds the card.
 
-Only the local runner is ported: the JAX package's remote runners are
-actors of ray_tpu's runtime, and ``num_env_runners > 0`` raises.
+With ``num_env_runners > 0`` the group's runners are spawned CPU processes
+(``_private/process_actor.py``) in place of the JAX package's actors, with
+its fault handling: a runner whose call fails is replaced, and its sample
+dropped. The connector factory goes to them with the standard pickle, by
+reference (a class, a module-level function or a ``functools.partial``),
+where the JAX package cloudpickles it; a lambda raises ``TypeError`` when
+the group is built.
 
 ``_make_env("CartPole-v1")`` builds ``gymnasium.make("CartPole-v1")`` where
 gymnasium imports and ``env/cartpole.py:CartPole`` where it does not, the
@@ -25,7 +30,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ray_tpu_torch.rllib.core.learner_group import remote_not_ported
+from ray_tpu_torch._private.process_actor import (ActorError, ProcessActor, get,
+                                                  require_picklable, start_all)
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 
 
@@ -266,8 +272,78 @@ def _logsumexp(x: np.ndarray) -> np.ndarray:
     return m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True))
 
 
-class EnvRunnerGroup:
-    """The local env runner (the JAX group's ``num_env_runners=0`` mode)."""
+class RunnerProcesses:
+    """What the single- and multi-agent groups share: one local runner, or
+    ``num_env_runners`` processes, runner i ``cls(*args, seed=seed + i,
+    **kwargs)``, each replaced when a call to it fails."""
+
+    _name = "runner"
+
+    def _start(self, cls, args: tuple, kwargs: dict, seed: int, num_env_runners: int):
+        self._cls, self._args, self._kwargs, self._seed = cls, args, kwargs, seed
+        self._local, self._remote = None, []
+        if num_env_runners <= 0:
+            self._local = cls(*args, seed=seed, **kwargs)
+        else:
+            self._remote = start_all([self._spawn(i) for i in range(num_env_runners)])
+
+    def _spawn(self, index: int) -> ProcessActor:
+        return ProcessActor(self._cls, self._args, dict(self._kwargs, seed=self._seed + index),
+                            name=f"{self._name}-{index}")
+
+    @property
+    def runners(self) -> list:
+        """The runner processes (empty in local mode)."""
+        return self._remote
+
+    @property
+    def local_runner(self):
+        return self._local
+
+    def replace_runner(self, index: int) -> ProcessActor:
+        """Respawn runner ``index`` in place and return it (IMPALA manages
+        its own in-flight calls). The old process is killed first: a
+        caller replaces on any error, and an application error would
+        otherwise leave a live runner behind."""
+        self._remote[index].kill()
+        self._remote[index] = self._spawn(index)
+        return self._remote[index]
+
+    def _fan_out(self, weights: Optional[dict], push_to_replacement: bool) -> list:
+        """Push ``weights`` to every runner process, then sample each; the
+        outputs of those that answered, in index order. A runner whose call
+        fails is replaced and its sample dropped; the replacement gets the
+        weights only with ``push_to_replacement``."""
+        runners = list(self._remote)
+        # the weights land before the sample: one process runs its calls in order
+        pushes = [r.call("set_weights", weights) if weights is not None else None
+                  for r in runners]
+        samples = [r.call("sample") for r in runners]
+        outs = []
+        for i, (push, ref) in enumerate(zip(pushes, samples)):
+            try:
+                if push is not None:
+                    get(push)
+                outs.append(get(ref))
+            except ActorError:
+                runner = self.replace_runner(i)
+                if push_to_replacement and weights is not None:
+                    try:
+                        get(runner.call("set_weights", weights), timeout=60)
+                    except ActorError:
+                        pass
+        return outs
+
+    def shutdown(self):
+        for r in self._remote:
+            r.kill()
+
+
+class EnvRunnerGroup(RunnerProcesses):
+    """The local env runner, or ``num_env_runners`` runner processes with
+    fault-aware fan-out (runner i seeded ``seed + i``)."""
+
+    _name = "env-runner"
 
     def __init__(
         self,
@@ -283,35 +359,60 @@ class EnvRunnerGroup:
         emit_sequences: bool = False,
         env_to_module_connector=None,
     ):
-        if num_env_runners > 0:
-            raise remote_not_ported("remote env runners (num_env_runners > 0)")
         self.num_env_runners = num_env_runners
-        self._local = SingleAgentEnvRunner(
-            env_id,
-            module_spec,
+        if num_env_runners > 0 and env_to_module_connector is not None:
+            require_picklable(env_to_module_connector, "env_to_module_connector")
+        kwargs = dict(
             num_envs=num_envs_per_runner,
             rollout_fragment_length=rollout_fragment_length,
             gamma=gamma,
             lambda_=lambda_,
-            seed=seed,
             emit_sequences=emit_sequences,
             env_to_module_connector=env_to_module_connector,
         )
-
-    @property
-    def local_runner(self):
-        return self._local
+        self._start(SingleAgentEnvRunner, (env_id, module_spec), kwargs, seed, num_env_runners)
 
     def sample(self, weights: Optional[dict] = None) -> tuple[dict, dict]:
-        """Returns (batch, metrics)."""
-        if weights is not None:
-            self._local.set_weights(weights)
-        out = self._local.sample()
-        return out["batch"], out["metrics"]
+        """Returns (concatenated batch, aggregated metrics)."""
+        if self._local is not None:
+            if weights is not None:
+                self._local.set_weights(weights)
+            out = self._local.sample()
+            return out["batch"], out["metrics"]
+        good = self._fan_out(weights, push_to_replacement=True)
+        if not good:
+            raise RuntimeError("all env runners failed")
+        batch = {k: np.concatenate([o["batch"][k] for o in good]) for k in good[0]["batch"]}
+        ms = [o["metrics"] for o in good]
+        metrics = {
+            "episode_return_mean": float(np.nanmean([m["episode_return_mean"] for m in ms])),
+            "episode_len_mean": float(np.nanmean([m["episode_len_mean"] for m in ms])),
+            "num_env_steps": int(sum(m["num_env_steps"] for m in ms)),
+            "num_episodes": int(sum(m["num_episodes"] for m in ms)),
+            "num_healthy_runners": len(good),
+        }
+        return batch, metrics
 
     def get_connector_state(self):
-        return self._local.get_connector_state()
+        """Connector pipeline state for checkpoints (the local runner's, or
+        the first healthy runner's: runners converge on the same stream)."""
+        if self._local is not None:
+            return self._local.get_connector_state()
+        for r in self._remote:
+            try:
+                return get(r.call("get_connector_state"), timeout=60)
+            except ActorError:
+                continue
+        return None
 
     def set_connector_state(self, state):
-        if state is not None:
+        if state is None:
+            return
+        if self._local is not None:
             self._local.set_connector_state(state)
+            return
+        for r in self._remote:
+            try:
+                get(r.call("set_connector_state", state), timeout=60)
+            except ActorError:
+                pass

@@ -4,8 +4,12 @@ Counterpart of ``ray_tpu/rllib/env/multi_agent.py`` (reference:
 ``rllib/env/multi_agent_env.py``, dict-keyed obs/reward/term per agent with
 ``__all__`` termination, and ``rllib/env/multi_agent_env_runner.py``). The
 env and the runner have no JAX in them; the runner's modules are the port's
-RLModules on the CPU. Only the local runner group is ported
-(``num_env_runners > 0`` raises, as for the single-agent group).
+RLModules on the CPU. With ``num_env_runners > 0`` the runners are spawned
+CPU processes (``_private/process_actor.py``); the env factory and
+``policy_mapping_fn`` then go to them with the standard pickle, by
+reference (a class, a module-level function, a ``functools.partial`` or a
+bound method such as ``{"agent_0": "p0"}.__getitem__``), and a lambda
+raises ``TypeError`` when the group is built.
 
 The runner samples the env with every agent's CURRENT policy, builds GAE
 batches PER POLICY (agents sharing a policy concatenate), and returns
@@ -19,8 +23,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ray_tpu_torch.rllib.core.learner_group import remote_not_ported
-from ray_tpu_torch.rllib.env.env_runner import _softmax
+from ray_tpu_torch._private.process_actor import require_picklable
+from ray_tpu_torch.rllib.env.env_runner import RunnerProcesses, _softmax
 
 
 class MultiAgentEnv:
@@ -248,8 +252,13 @@ class MultiAgentEnvRunner:
         return {"batches": out_batches, "metrics": metrics}
 
 
-class MultiAgentEnvRunnerGroup:
-    """The local multi-agent runner."""
+class MultiAgentEnvRunnerGroup(RunnerProcesses):
+    """The local multi-agent runner, or ``num_env_runners`` runner
+    processes (runner i seeded ``seed + i``); a runner whose call fails is
+    replaced, gets no weights and adds nothing to that sample, as in the
+    JAX package."""
+
+    _name = "multi-agent-runner"
 
     def __init__(
         self,
@@ -264,15 +273,32 @@ class MultiAgentEnvRunnerGroup:
         seed: int = 0,
     ):
         if num_env_runners > 0:
-            raise remote_not_ported("remote multi-agent env runners (num_env_runners > 0)")
-        self._local = MultiAgentEnvRunner(
-            env_maker, module_specs, policy_mapping_fn,
-            rollout_fragment_length=rollout_fragment_length,
-            gamma=gamma, lambda_=lambda_, seed=seed,
-        )
+            require_picklable(env_maker, "the multi-agent env factory (environment(env=...))")
+            require_picklable(policy_mapping_fn, "policy_mapping_fn")
+        kwargs = dict(rollout_fragment_length=rollout_fragment_length, gamma=gamma,
+                      lambda_=lambda_)
+        self._start(MultiAgentEnvRunner, (env_maker, module_specs, policy_mapping_fn), kwargs,
+                    seed, num_env_runners)
 
     def sample(self, weights: Optional[dict] = None):
-        if weights is not None:
-            self._local.set_weights(weights)
-        out = self._local.sample()
-        return out["batches"], out["metrics"]
+        if self._local is not None:
+            if weights is not None:
+                self._local.set_weights(weights)
+            out = self._local.sample()
+            return out["batches"], out["metrics"]
+        outs = self._fan_out(weights, push_to_replacement=False)
+        if not outs:
+            raise RuntimeError("all multi-agent env runners failed")
+        pids = sorted({pid for o in outs for pid in o["batches"]})
+        batches = {
+            pid: {k: np.concatenate([o["batches"][pid][k] for o in outs if pid in o["batches"]])
+                  for k in next(o["batches"][pid] for o in outs if pid in o["batches"])}
+            for pid in pids
+        }
+        ms = [o["metrics"] for o in outs]
+        metrics = {
+            "episode_return_mean": float(np.nanmean([m["episode_return_mean"] for m in ms])),
+            "num_env_steps": int(sum(m["num_env_steps"] for m in ms)),
+            "num_episodes": int(sum(m["num_episodes"] for m in ms)),
+        }
+        return batches, metrics

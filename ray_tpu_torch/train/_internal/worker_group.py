@@ -10,8 +10,10 @@ context (CUDA forbids ``fork``), one process per rank:
   child starts with (so no import in the child can initialise CUDA before
   it is set); asking for more cards than are visible raises at once,
   naming both counts (the counterpart of the placement group's
-  ``TimeoutError``, :164-171). CPU ranks split the host's cores between
-  them (``OMP_NUM_THREADS``, unless the caller set it).
+  ``TimeoutError``, :164-171). CPU ranks see no card and split the
+  host's cores between them (``OMP_NUM_THREADS``, unless the caller set
+  it). The environment is ``_private/spawn_env.py``'s, which the process
+  actors of RLlib's remote half share.
 - *Rendezvous.* In place of ``jax.distributed.initialize`` (:74-79) every
   rank calls ``torch.distributed.init_process_group``, NCCL under
   ``use_gpu`` and gloo otherwise, as the reference's
@@ -41,7 +43,6 @@ import pickle
 import sys
 import time
 import traceback
-from contextlib import contextmanager
 from datetime import timedelta
 from multiprocessing.connection import wait
 from typing import Any, Optional
@@ -49,6 +50,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch._private.spawn_env import assign_cards, environ, process_env
 from ray_tpu_torch.accelerator import GPUAcceleratorManager
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import ScalingConfig
@@ -67,37 +69,12 @@ def gpu_ids_per_rank(scaling: ScalingConfig, n: int) -> Optional[list[list[str]]
     ok, why = GPUAcceleratorManager.validate_resource_request_quantity(per)
     if not ok or per < 1:
         raise ValueError(why or f"a GPU rank needs at least one card, got GPU: {per}")
-    per = int(per)
-    count = GPUAcceleratorManager.get_current_node_num_accelerators()
-    if count == 0:
+    if GPUAcceleratorManager.get_current_node_num_accelerators() == 0:
         raise RuntimeError(
             "ScalingConfig(use_gpu=True) but no CUDA device is visible; pass "
             "ScalingConfig(use_gpu=False) to run the ranks on the CPU"
         )
-    if per * n > count:
-        raise RuntimeError(
-            f"{n} GPU ranks of {per} card(s) each need {per * n} cards, "
-            f"but {count} are visible"
-        )
-    visible = GPUAcceleratorManager.get_current_process_visible_accelerator_ids()
-    ids = visible if visible is not None else [str(i) for i in range(count)]
-    return [ids[r * per:(r + 1) * per] for r in range(n)]
-
-
-@contextmanager
-def _environ(env: dict):
-    """``env`` set in this process's environment, which a process spawned
-    inside the block inherits, and the old values put back after."""
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    return assign_cards(n, int(per), "GPU ranks")
 
 
 def _join(backend: str) -> tuple[int, torch.device]:
@@ -213,21 +190,19 @@ class WorkerGroup:
                                     timeout=_RENDEZVOUS_TIMEOUT)
         coordinator = f"127.0.0.1:{self._store.port}"
         mp = multiprocessing.get_context("spawn")
+        # CPU ranks share this host's cores (torchrun's default too)
+        threads = int(os.environ.get("OMP_NUM_THREADS") or (os.cpu_count() or 1) // n)
         for rank in range(n):
             env = {"RAY_TPU_WORLD_SIZE": str(n), "RAY_TPU_RANK": str(rank),
-                   "RAY_TPU_COORDINATOR": coordinator}
-            if gpu_ids:
-                env.update(GPUAcceleratorManager.get_visibility_env(gpu_ids[rank]))
-            elif "OMP_NUM_THREADS" not in os.environ:
-                # CPU ranks share this host's cores (torchrun's default too)
-                env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // n))
+                   "RAY_TPU_COORDINATOR": coordinator,
+                   **process_env(gpu_ids[rank] if gpu_ids else [], threads)}
             recv, send = mp.Pipe(duplex=False)
             inbox = outbox = None
             if inbound:
                 inbox, outbox = mp.Pipe(duplex=False)
             p = mp.Process(target=target, name=f"{self.experiment_name}-rank-{rank}",
                            args=args(rank, n, backend, coordinator, send, inbox))
-            with _environ(env):
+            with environ(env):
                 p.start()
             send.close()  # the child holds the write end
             if inbox is not None:

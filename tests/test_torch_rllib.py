@@ -14,8 +14,9 @@ in other orders):
   logp, advantages and value targets 1e-5.
 
 Then the single-process tests of ``tests/test_rllib.py`` against the
-port, at their own settings and limits, and the parts that are not
-ported raising ``NotImplementedError``.
+port, at their own settings and limits, and ``as_trainable`` raising
+``NotImplementedError`` (Tune is not ported). The remote half is
+``tests/test_torch_rllib_remote*.py``.
 """
 
 import inspect
@@ -312,7 +313,7 @@ def test_port_checkpoint_roundtrip_keeps_the_full_state(tmp_path):
     assert b["iteration"] == 1 and b["total_env_steps"] == a["total_env_steps"]
 
 
-# ---- devices and what is not ported ------------------------------------------------
+# ---- devices and Tune ------------------------------------------------
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -325,26 +326,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         RLModuleSpec().build()
 
 
-@pytest.mark.parametrize("what", ["env_runners", "learners", "impala_async", "sac_runners",
-                                  "multi_agent_runners", "as_trainable"])
-def test_remote_parts_raise_naming_the_open_question(what):
-    from ray_tpu_torch.rllib import IMPALAConfig, SACConfig
-    from ray_tpu_torch.rllib.env.multi_agent import MultiAgentCartPole
-
+def test_as_trainable_raises_tune_is_not_ported():
     base = PPOConfig().environment("CartPole-v1").env_runners(rollout_fragment_length=8)
-    build = {
-        "env_runners": lambda: base.copy().env_runners(num_env_runners=2).build(device="cpu"),
-        "learners": lambda: base.copy().learners(num_learners=2).build(device="cpu"),
-        "impala_async": lambda: IMPALAConfig().environment("CartPole-v1").build(device="cpu"),
-        "sac_runners": lambda: SACConfig().environment("Reach-v0")
-        .env_runners(num_env_runners=2).build(device="cpu"),
-        "multi_agent_runners": lambda: PPOConfig().environment(lambda: MultiAgentCartPole(2))
-        .multi_agent(policies={"p": None}, policy_mapping_fn=lambda a: "p")
-        .env_runners(num_env_runners=1).build(device="cpu"),
-        "as_trainable": lambda: PPO.as_trainable(base),
-    }[what]
-    with pytest.raises(NotImplementedError, match="Does the port ever run on ray_tpu's runtime"):
-        build()
+    with pytest.raises(NotImplementedError, match="Tune is not ported"):
+        PPO.as_trainable(base)
 
 
 # ---- tests/test_rllib.py's single-process tests, against the port ----------------
