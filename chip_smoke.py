@@ -4,8 +4,8 @@
 and decode disaggregated, and offline batch inference), its
 training path (dense and MoE, remat "full" and "dots"), its int8 weight
 path, the entry() twin, the Train layer's train -> checkpoint -> serve
-path, and the RL stack (ray_tpu_torch.rllib), its runner and learner
-processes included.
+path and its elastic resizing on the host's card ledger, and the RL stack
+(ray_tpu_torch.rllib), its runner and learner processes included.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -125,6 +125,19 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 LLMServer serves that checkpoint (weights' checksums equal,
                 prefill logits within the bf16 limit, a swapped-leaf copy
                 refused, 16 x 32 greedy tokens, graph replays).
+ 15a. elastic — elastic training and the host's card ledger
+                (tools/elastic_bench.py's one-card parts): (a) a group of 2
+                (min 1) at the bench widths, ELASTIC_DEPTH layers, starts at
+                the one free card, checkpoints its state every 2 of 6 steps,
+                polls resize_decision without firing, charges no failure;
+                attention launches 2L / L / L a step in the rank; (b) a
+                process actor holding the card makes a one-card trainer
+                refuse to start, naming its pid; SIGKILLed, the card returns
+                and the trainer finishes; (c) two learner processes at
+                {"GPU": 0.5} on the card, each update bit-equal to a local
+                learner's (a control must miss), and a two-policy PPO at
+                {"GPU": 1} whose second group raises naming the first's
+                learner. No lease left.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -179,8 +192,10 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 >= 700, log_alpha kept by save/restore). Counters 0, in
                 this process and in the learner process (read there); no
                 process of the phase left after each stop.
-Then the kernels summary line, the nvidia-smi line, and, last,
-{"ok": true, "device": {...}}.
+After each phase that spawns processes, a {"ledger_after": phase,
+"holders": [...]} line lists the card ledger's live leases (a rank or
+actor that leaked shows there, under its pid). Then the kernels summary
+line, the nvidia-smi line, and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the ray_tpu package.
 """
@@ -2417,6 +2432,61 @@ def phase_train_serve(torch, card: str, train: dict) -> dict:
     return out
 
 
+ELASTIC_DEPTH = 4  # layers of the elastic phase's capped start (widths full)
+
+
+def phase_elastic(torch, card: str) -> dict:
+    """Elastic training and the host's card ledger on one card, through the
+    entry points a user calls (ray_tpu_torch.tools.elastic_bench, which the
+    four-card run shares):
+
+    (a) TorchTrainer(train_loop, ScalingConfig(num_workers=2,
+    min_workers=1, use_gpu=True)) at the bench widths (bench.py:31-47,
+    depth cut to ELASTIC_DEPTH layers: 4 x 2048 tokens a step, a state
+    checkpoint every 2 of 6 steps) starts at world size 1 from the ledger's
+    one free card, polls resize_decision (never firing: no headroom),
+    resizes never and charges no failure; the rank's attention launches
+    are 2L / L / L a step, counted in the rank.
+    (b) A process actor holding the card (a learner on cuda) makes a
+    one-card TorchTrainer refuse to start, naming the holder's pid; after
+    the holder's SIGKILL the same trainer starts and finishes; no lease is
+    left.
+    (c) Two learner processes at resources_per_learner={"GPU": 0.5} hold
+    half the card each, each one's update bit-equal to a local learner's (a
+    shifted-actions control must miss); a two-policy PPO at {"GPU": 1} a
+    learner: the second policy's group raises, naming the first's learner
+    (the control for the groups that shared card 0 unknowingly)."""
+    from ray_tpu_torch.tools import elastic_bench as eb
+
+    gc_collect(torch)  # the parent holds no model while the ranks run
+    parts = {"capped_start": eb.capped_start("cuda", depth=ELASTIC_DEPTH, steps=6, every=2),
+             "ledger_on_card": eb.ledger_on_card("cuda"),
+             "shared_learners": eb.shared_learners("cuda")}
+    for name, part in parts.items():
+        emit({"phase": "elastic", "card": card, **part})
+    failed = {name: p["failed_checks"] for name, p in parts.items() if not p["ok"]}
+    if failed:
+        raise AssertionError(f"elastic: {failed}")
+    capped = parts["capped_start"]
+    out = {"phase": "elastic", "card": card, "layers": capped["layers"],
+           "launches": capped["launches"], "rank_startup_s": capped["rank_startup_s"],
+           "resize_checks": capped["resize_checks"], "step_ms": capped["step_ms"],
+           "state_checkpoint_write_s": capped["state_checkpoint_write_s"],
+           "state_checkpoint_read_s": capped["state_checkpoint_read_s"],
+           "holders_seen": parts["ledger_on_card"]["holders_seen"]
+           + parts["shared_learners"]["holders_seen"]}
+    emit(out)
+    return out
+
+
+def emit_holders(phase: str) -> None:
+    """The card ledger's live leases after a phase that spawns processes:
+    a rank or actor that outlived its phase shows here, under its pid."""
+    from ray_tpu_torch._private.cards import default_ledger
+
+    emit({"ledger_after": phase, "holders": [str(h) for h in default_ledger().holders()]})
+
+
 def main() -> int:
     import torch
 
@@ -2443,10 +2513,14 @@ def main() -> int:
 
     timings = {}
 
+    spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "parallel", "rllib_remote"}
+
     def timed_phase(name, fn):
         t = time.perf_counter()
         result = fn(torch, card)
         timings[name] = time.perf_counter() - t
+        if name in spawning:
+            emit_holders(name)
         return result
 
     k = timed_phase("kernels", phase_kernels)
@@ -2471,6 +2545,7 @@ def main() -> int:
     dots = timed_phase("train_dots", lambda torch, card: phase_train_dots(torch, card, train))
     timed_phase("graft_entry", phase_graft_entry)
     train_serve = timed_phase("train_serve", lambda torch, card: phase_train_serve(torch, card, train))
+    elastic = timed_phase("elastic", phase_elastic)
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
@@ -2548,6 +2623,8 @@ def main() -> int:
                              "train_dots": dots["launches"][key],
                              # the trainer's rank process, its own counters
                              "train_serve": train_serve["launches"][name],
+                             # the elastic group's one rank (ELASTIC_DEPTH layers, 6 steps)
+                             "elastic": elastic["launches"][name],
                              # the sweep's first step on each mesh, counted in the rank
                              "parallel": parallel["launches"][key],
                              "rllib": rllib["launches"][name],

@@ -16,10 +16,12 @@ RLlib's remote env runners, remote learners and SAC's runners run on it.
   actor's place (a rank of ``WorkerGroup.start_loop`` cannot). The class
   and its arguments travel with the standard ``pickle``, by reference, so
   the class must be importable by name (no ``cloudpickle``).
-- *Devices.* With ``card=None`` the process sees no card
-  (``CUDA_VISIBLE_DEVICES=""``) and runs one intra-op thread; with
-  ``card=<id>`` it sees exactly that card, as ``cuda:0``
-  (``_private/spawn_env.py``, shared with the Train layer's ranks).
+- *Devices.* With ``lease=None`` the process sees no card
+  (``CUDA_VISIBLE_DEVICES=""``) and runs one intra-op thread; with a
+  lease from the host's card ledger (``spawn_env.assign_cards``) it sees
+  exactly the lease's card, as ``cuda:0``, and holds the lease for its
+  life (``_private/spawn_env.py``, shared with the Train layer's ranks):
+  a process that is killed, however, leaves no lease behind.
 - *Calls* go over a pipe by method name (or as a module-level function,
   by reference, run in the process on its arguments alone) and run in the
   order they were sent: a ``set_weights`` lands before the ``sample`` sent
@@ -50,7 +52,8 @@ import weakref
 from multiprocessing.connection import wait as _wait_ready
 from typing import Any, Optional
 
-from ray_tpu_torch._private.spawn_env import environ, process_env
+from ray_tpu_torch._private.cards import Lease
+from ray_tpu_torch._private.spawn_env import process_env, start_process
 
 # the JAX package's deadline on a remote runner's sample
 # (ray_tpu/rllib/env/env_runner.py:405)
@@ -163,20 +166,26 @@ def _reap(proc, conns, grace_s: float) -> None:
 
 
 class ProcessActor:
-    """``cls(*args, **kwargs)`` in a spawned process of its own; ``card``
-    is the card id it holds, or None for a CPU process."""
+    """``cls(*args, **kwargs)`` in a spawned process of its own; ``lease``
+    is the card ledger's lease it holds (its card), or None for a CPU
+    process that holds nothing."""
 
     def __init__(self, cls, args: tuple = (), kwargs: Optional[dict] = None, *,
-                 card: Optional[str] = None, name: Optional[str] = None):
+                 lease: Optional[Lease] = None, name: Optional[str] = None):
         self.name = name or cls.__name__
-        blob = _dumps((cls, tuple(args), dict(kwargs or {})), f"{self.name}'s class and arguments")
-        mp = multiprocessing.get_context("spawn")
-        calls_r, calls_w = mp.Pipe(duplex=False)
-        replies_r, replies_w = mp.Pipe(duplex=False)
-        self._proc = mp.Process(target=_actor_main, name=self.name, daemon=True,
-                                args=(blob, calls_r, replies_w, card is None))
-        with environ(process_env([card] if card is not None else [], 1)):
-            self._proc.start()
+        try:
+            blob = _dumps((cls, tuple(args), dict(kwargs or {})),
+                          f"{self.name}'s class and arguments")
+            mp = multiprocessing.get_context("spawn")
+            calls_r, calls_w = mp.Pipe(duplex=False)
+            replies_r, replies_w = mp.Pipe(duplex=False)
+            cards = lease.cards if lease is not None else []
+            self._proc = start_process(mp, _actor_main, (blob, calls_r, replies_w, not cards),
+                                       name=self.name, env=process_env(cards, 1), lease=lease,
+                                       daemon=True)
+        finally:
+            if lease is not None:
+                lease.release()  # a no-op once the child holds it
         calls_r.close()  # the child holds these ends
         replies_w.close()
         self._calls, self._replies = calls_w, replies_r

@@ -5,14 +5,19 @@ Shared by the Train layer's rank processes
 ``_private/process_actor.py``. A child process reads its cards and its
 thread count from the environment it starts with, before any import in it
 can initialise CUDA or size an OpenMP pool, so the parent sets them around
-``Process.start`` (``environ``).
+``Process.start`` (``environ``). Their cards and CPU slots are leased from
+the host's card ledger (``_private/cards.py``) and held by the child
+(``start_process``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 from contextlib import contextmanager
+from typing import Optional
 
+from ray_tpu_torch._private.cards import CardLedger, Lease, default_ledger
 from ray_tpu_torch.accelerator import GPUAcceleratorManager
 
 
@@ -32,20 +37,52 @@ def environ(env: dict):
                 os.environ[k] = v
 
 
-def assign_cards(n: int, per: int, what: str) -> list[list[str]]:
-    """The card ids of ``n`` processes of ``per`` cards each, from the
-    cards this process sees. Raises when none is visible or when the
-    processes need more than are, naming both counts; never a CPU
+def assign_cards(n: int, per: float, what: str, *, cpu: float = 0.0,
+                 ledger: Optional[CardLedger] = None) -> list[Optional[Lease]]:
+    """Leases for ``n`` processes of ``per`` cards each (a share of one
+    card below 1, none at 0) and ``cpu`` CPU slots each, taken from the
+    host's card ledger all or none (None for a process that asks for
+    nothing). Raises when a card is asked for and none is visible, or when
+    the processes need more cards than are visible, naming both counts;
+    ``LedgerError`` when too few are free, naming the holders. Never a CPU
     fallback. ``what`` names the processes in the message."""
-    count = GPUAcceleratorManager.get_current_node_num_accelerators()
-    if count == 0:
-        raise RuntimeError(f"{what} need a CUDA device, but none is visible")
-    if per * n > count:
-        raise RuntimeError(f"{n} {what} of {per} card(s) each need {per * n} cards, "
-                           f"but {count} are visible")
-    visible = GPUAcceleratorManager.get_current_process_visible_accelerator_ids()
-    ids = visible if visible is not None else [str(i) for i in range(count)]
-    return [ids[r * per:(r + 1) * per] for r in range(n)]
+    ledger = ledger or default_ledger()
+    if per:
+        count = len(ledger.card_ids())
+        if count == 0:
+            raise RuntimeError(f"{what} need a CUDA device, but none is visible")
+        need = math.ceil(per * n - 1e-9)
+        if need > count:
+            raise RuntimeError(f"{n} {what} of {per:g} card(s) each need {need} cards, "
+                               f"but {count} are visible")
+    request = {k: v for k, v in (("GPU", per), ("CPU", cpu)) if v}
+    if not request:
+        return [None] * n
+    return ledger.acquire([request] * n, f"{n} {what}")
+
+
+def start_process(ctx, target, args: tuple, *, name: str, env: dict,
+                  lease: Optional[Lease] = None, daemon: bool = False):
+    """Spawn ``target(*args)`` (a ``spawn`` context's process) with ``env``
+    set around its start. With a ``lease``, the child receives its
+    descriptor and holds it for its life: the parent's copy is closed once
+    the child has started (``Lease.bind``), so the lease ends with the
+    child, however it ends."""
+    if lease is not None:
+        args = (lease.inheritable(), target, *args)
+        target = _run_holding
+    p = ctx.Process(target=target, name=name, args=args, daemon=daemon)
+    with environ(env):
+        p.start()
+    if lease is not None:
+        lease.bind(p.pid)
+    return p
+
+
+def _run_holding(held, target, *args):
+    """A child's entry when it holds a lease: ``held``, the lease's
+    descriptor, arrived open and stays open; then ``target(*args)``."""
+    return target(*args)
 
 
 def process_env(cards: list, cpu_threads: int) -> dict:

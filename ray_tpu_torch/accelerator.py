@@ -38,6 +38,18 @@ class GPUAcceleratorManager:
         return [s.strip() for s in v.split(",") if s.strip()]
 
     @staticmethod
+    def get_physical_card_ids() -> list[str]:
+        """This process's visible cards by physical id: the entries of
+        ``CUDA_VISIBLE_DEVICES`` themselves (an integer names a card as
+        CUDA numbers them, whatever the parent saw), or ``0..count-1``
+        when it is unset. Two processes with different visibility name a
+        card alike, and a child given one of these ids sees that card."""
+        ids = GPUAcceleratorManager.get_current_process_visible_accelerator_ids()
+        if ids is not None:
+            return ids
+        return [str(i) for i in range(GPUAcceleratorManager.get_current_node_num_accelerators())]
+
+    @staticmethod
     def get_current_node_num_accelerators() -> int:
         ids = GPUAcceleratorManager.get_current_process_visible_accelerator_ids()
         if ids is not None:

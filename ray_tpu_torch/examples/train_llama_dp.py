@@ -10,9 +10,10 @@ batch seed from rank 0 (``broadcast_from_rank_zero``), reads each step's
 batch from the rank's ``"train"`` dataset shard (``get_dataset_shard``)
 through ``data.iter_device_batches`` when the trainer was given one
 (rows {"tokens": [seq_len + 1]}), else draws it from (seed, rank, step),
-and reports ``{"loss",
-"step"}`` (with the step's wall ms, grad norm and kernel launch counts)
-after every step. The last step reports the params as a checkpoint
+or, with ``global_batch``, takes its rows of the global batch drawn from
+(seed, step), and reports ``{"loss", "step", "world_size"}`` (with the
+step's wall ms, grad norm and kernel launch counts) after every step. The
+last step reports the params as a checkpoint
 (``Checkpoint.from_state_dict``) with each tensor's bit checksum and
 whether every rank holds the same (an all-gather), and,
 when asked, the last-token logits of a probe prompt through the serving
@@ -22,9 +23,15 @@ when asked, the last-token logits of a probe prompt through the serving
   ``tools/train_bench.py:bench_config``); ``model_kwargs``: overrides;
 - ``steps``, ``batch``, ``seq_len``, ``seed``; ``optimizer``: kwargs of
   ``default_optimizer``;
+- ``global_batch``: B rows a step, drawn from (seed, step) whatever the
+  world size; rank r of w takes rows [r B / w, (r + 1) B / w). dp's
+  gradient is the mean over the global batch, so a run whose world size
+  changes (an elastic resize) computes the same function;
 - ``state_checkpoint_at``: after this step, report the whole train state
   (params, AdamW moments, step) as a checkpoint; a restarted rank resumes
-  from it (``get_checkpoint``);
+  from it (``get_checkpoint``); ``state_checkpoint_every``: the same after
+  every k-th step but the last. Rank 0 alone writes a checkpoint (the
+  session keeps rank 0's only);
 - ``fail_once_after``: raise after this step in an attempt that did not
   resume from a checkpoint (the failure-and-resume check);
 - ``probe``: {"tokens": [...], "model_kwargs": ..., "max_seq_len": ...},
@@ -104,10 +111,31 @@ def equal_across_ranks(checksums: dict, device) -> bool:
     return all(torch.equal(e, mine) for e in every)
 
 
-def _batch(cfg: LlamaConfig, config: dict, seed: int, rank: int, step: int, device) -> dict:
-    rng = np.random.default_rng([seed, rank, step])
-    toks = rng.integers(0, cfg.vocab_size, (config["batch"], config["seq_len"] + 1), dtype=np.int32)
+def global_batch(cfg: LlamaConfig, config: dict, seed: int, step: int) -> np.ndarray:
+    """The ``global_batch`` rows of tokens of ``step`` [B, seq_len + 1]."""
+    rng = np.random.default_rng([seed, step])
+    return rng.integers(0, cfg.vocab_size, (config["global_batch"], config["seq_len"] + 1),
+                        dtype=np.int32)
+
+
+def _batch(cfg: LlamaConfig, config: dict, seed: int, rank: int, world: int, step: int,
+           device) -> dict:
+    if "global_batch" in config:
+        B = config["global_batch"]
+        if B % world:
+            raise ValueError(f"global_batch {B} does not split over {world} ranks")
+        toks = global_batch(cfg, config, seed, step)[rank * B // world:(rank + 1) * B // world]
+    else:
+        rng = np.random.default_rng([seed, rank, step])
+        toks = rng.integers(0, cfg.vocab_size, (config["batch"], config["seq_len"] + 1),
+                            dtype=np.int32)
     return {"tokens": torch.from_numpy(toks).to(device)}
+
+
+def _state_checkpoint_due(config: dict, step: int) -> bool:
+    every = config.get("state_checkpoint_every")
+    return (step == config.get("state_checkpoint_at")
+            or bool(every) and step % every == 0 and step < config["steps"])
 
 
 def _nbytes(tree: dict) -> int:
@@ -148,7 +176,7 @@ def train_loop(config: dict) -> None:
                iter_device_batches(shard, batch_size=config["batch"], device=device))
     for _ in range(state.step, config["steps"]):
         if batches is None:
-            batch = _batch(cfg, config, seed, rank, state.step, device)
+            batch = _batch(cfg, config, seed, rank, ctx.get_world_size(), state.step, device)
         else:
             batch = next(batches)
         before = launch_counts()
@@ -162,15 +190,17 @@ def train_loop(config: dict) -> None:
                    **restored}
         restored = {}  # on the first step after a resume only
         checkpoint = None
-        if state.step == config.get("state_checkpoint_at"):
-            checkpoint, metrics = _timed_checkpoint(state.state_dict(), metrics)
+        if _state_checkpoint_due(config, state.step):
+            if rank == 0:
+                checkpoint, metrics = _timed_checkpoint(state.state_dict(), metrics)
         elif state.step == config["steps"]:
             metrics["checksums"] = bit_checksums(state.params)
             metrics["params_equal_across_ranks"] = equal_across_ranks(metrics["checksums"], device)
             if "probe" in config:
                 metrics["probe_logits"] = probe_logits(
                     state.params, serve_config(config["probe"]), config["probe"]["tokens"])
-            checkpoint, metrics = _timed_checkpoint(state.params, metrics)
+            if rank == 0:
+                checkpoint, metrics = _timed_checkpoint(state.params, metrics)
         train.report(metrics, checkpoint=checkpoint)
         if state.step == config.get("fail_once_after") and chk is None:
             raise RuntimeError(f"injected failure after step {state.step} (fail_once_after)")

@@ -7,8 +7,9 @@ Counterpart of ``ray_tpu/rllib/algorithms/algorithm.py`` (reference:
 builder is a copy. ``config.build(device=None)`` puts the learner on the
 card unless the caller asks for the CPU; env runners sample on the CPU,
 in this process or, with ``num_env_runners > 0``, in runner processes;
-``num_learners > 0`` puts each learner in a process of its own, on a card
-of its own (``_private/process_actor.py``). ``stop`` ends those
+``num_learners > 0`` puts each learner in a process of its own, holding
+``resources_per_learner`` of the host's cards (one card each unless it
+says otherwise; ``_private/process_actor.py``). ``stop`` ends those
 processes. ``save`` / ``restore`` go through ``train/checkpoint.py``, so a
 JAX checkpoint restores here. ``as_trainable`` raises: Tune is not ported.
 """
@@ -197,6 +198,7 @@ class Algorithm:
             num_learners=config.num_learners,
             learner_kwargs=self._learner_kwargs(),
             device=self.device,
+            resources_per_learner=config.resources_per_learner,
         )
         self.env_runner_group = EnvRunnerGroup(
             config.env,
@@ -245,15 +247,22 @@ class Algorithm:
                 )
             specs[pid] = spec
         self.module_specs = specs
-        self.learner_groups = {
-            pid: LearnerGroup(
-                spec,
-                num_learners=config.num_learners,
-                learner_kwargs=self._learner_kwargs(),
-                device=self.device,
-            )
-            for pid, spec in specs.items()
-        }
+        # one group a policy, each holding cards of its own: when too few
+        # are free a later group raises, and the groups built are stopped
+        self.learner_groups = {}
+        try:
+            for pid, spec in specs.items():
+                self.learner_groups[pid] = LearnerGroup(
+                    spec,
+                    num_learners=config.num_learners,
+                    learner_kwargs=self._learner_kwargs(),
+                    device=self.device,
+                    resources_per_learner=config.resources_per_learner,
+                )
+        except BaseException:
+            for group in self.learner_groups.values():
+                group.shutdown()
+            raise
         self.env_runner_group = MultiAgentEnvRunnerGroup(
             env_maker,
             specs,

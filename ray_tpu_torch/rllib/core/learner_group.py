@@ -3,12 +3,18 @@
 Counterpart of ``ray_tpu/rllib/core/learner_group.py`` (reference:
 ``rllib/core/learner/learner_group.py:100``). With ``num_learners > 0``
 each learner is a ``TorchLearner`` in a spawned process of its own
-(``_private/process_actor.py``) holding one card, or the CPU when the
-group was asked for it (``device="cpu"``). The JAX group's gradient sync
-stays: every learner takes its ``np.array_split`` shard of the batch,
-updates, and the calling process averages the participants' weights and
-sets the average on every learner. Data parallelism inside one learner is
-``TorchLearner(mesh=...)`` over the ranks of a process group.
+(``_private/process_actor.py``) holding what ``resources_per_learner``
+asks of the host's card ledger (``_private/cards.py``): ``{"GPU": g}``
+leases g of a card a learner (at 0.5 two learners share one card; whole
+cards at 1 and above), one card when it names none, and nothing on the
+CPU (``device="cpu"``). Too few free cards raise at once, naming the
+holders, where the reference's actors would wait for placement; two
+groups started by one process hold disjoint cards. The JAX group's
+gradient sync stays: every learner takes its ``np.array_split`` shard of
+the batch, updates, and the calling process averages the participants'
+weights and sets the average on every learner. Data parallelism inside
+one learner is ``TorchLearner(mesh=...)`` over the ranks of a process
+group.
 """
 
 from __future__ import annotations
@@ -25,6 +31,20 @@ from ray_tpu_torch.rllib.core.learner import TorchLearner
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 
 
+def learner_leases(num_learners: int, resources_per_learner: Optional[dict],
+                   on_card: bool) -> list:
+    """Each learner process's lease of the card ledger: ``{"GPU": g}`` of
+    ``resources_per_learner`` (one card when it names none) on the card,
+    none on the CPU."""
+    if not on_card:
+        return [None] * num_learners
+    per = float((resources_per_learner or {}).get("GPU", 1))
+    if per <= 0:
+        raise ValueError(f"a learner on the card needs a share of one, got "
+                         f"resources_per_learner={resources_per_learner}")
+    return assign_cards(num_learners, per, "remote learners")
+
+
 class LearnerGroup:
     def __init__(
         self,
@@ -33,6 +53,7 @@ class LearnerGroup:
         num_learners: int = 0,
         learner_kwargs: Optional[dict] = None,
         device=None,
+        resources_per_learner: Optional[dict] = None,
     ):
         self.num_learners = num_learners
         kwargs = learner_kwargs or {}
@@ -42,14 +63,21 @@ class LearnerGroup:
             return
         # the card unless the caller asks for the CPU; too few cards raise
         on_card = resolve_device(device).type == "cuda"
-        cards = ([c[0] for c in assign_cards(num_learners, 1, "remote learners")] if on_card
-                 else [None] * num_learners)
-        self._remote = start_all([
-            ProcessActor(TorchLearner, (module_spec,),
-                         dict(kwargs, device="cuda" if on_card else "cpu"),
-                         card=card, name=f"learner-{i}")
-            for i, card in enumerate(cards)
-        ])
+        leases = learner_leases(num_learners, resources_per_learner, on_card)
+        actors = []
+        try:
+            for i, lease in enumerate(leases):
+                actors.append(ProcessActor(TorchLearner, (module_spec,),
+                                           dict(kwargs, device="cuda" if on_card else "cpu"),
+                                           lease=lease, name=f"learner-{i}"))
+        except BaseException:
+            for lease in leases[len(actors):]:
+                if lease is not None:
+                    lease.release()
+            for a in actors:
+                a.kill()
+            raise
+        self._remote = start_all(actors)
 
     @property
     def learner(self) -> Optional[TorchLearner]:

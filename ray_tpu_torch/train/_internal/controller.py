@@ -6,7 +6,19 @@ INITIALIZING -> SCHEDULING -> RUNNING -> (RESTARTING) -> FINISHED / ERRORED.
 The restart granularity is the whole group: any rank's failure (an error in
 its loop, a non-zero exit, a death) tears down every rank, and the group
 restarts from the latest checkpoint while ``FailureConfig.max_failures``
-allows. Elastic resizing is not ported (``config.py``).
+allows.
+
+Elastic groups (``ScalingConfig(min_workers=...)``) follow the reference's
+``ElasticScalingPolicy`` line for line: each attempt halves the size per
+attempt before it (never below ``min_workers``) and starts with what can
+be scheduled now, when that is at least ``min_workers``; while it runs,
+the group grows back toward ``num_workers`` once the larger size has held
+for 3 checks, 0.5 s apart, and only once a checkpoint exists. A resize
+tears the group down and restarts it at the new size from the latest
+checkpoint, uncharged to the failure budget. What "can be scheduled" is
+read from the host's card ledger (``_private/cards.py``): free whole cards
+for GPU ranks, free CPU slots for CPU ranks, where the reference reads
+``ray_tpu.available_resources()``.
 """
 
 from __future__ import annotations
@@ -14,12 +26,14 @@ from __future__ import annotations
 import enum
 import logging
 import os
+import time
 from typing import Any, Callable, Optional
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train._internal.checkpoint_manager import CheckpointManager
-from ray_tpu_torch.train._internal.worker_group import WorkerGroup
+from ray_tpu_torch._private.cards import default_ledger
+from ray_tpu_torch.train._internal.worker_group import WorkerGroup, rank_request
 
 logger = logging.getLogger(__name__)
 
@@ -31,6 +45,95 @@ class RunState(enum.Enum):
     RESTARTING = "RESTARTING"
     FINISHED = "FINISHED"
     ERRORED = "ERRORED"
+
+
+class ScalingPolicy:
+    """Decides the group's size for each (re)start: ``num_workers``, or an
+    elastic policy's (reference: ``train/v2/_internal/execution/
+    scaling_policy/``)."""
+
+    def __init__(self, scaling: ScalingConfig):
+        self.scaling = scaling
+
+    def group_size(self, attempt: int) -> int:
+        return self.scaling.num_workers
+
+
+class ElasticScalingPolicy(ScalingPolicy):
+    def __init__(self, scaling: ScalingConfig):
+        super().__init__(scaling)
+        self._last_target: Optional[int] = None
+        self._stable_polls = 0
+
+    def group_size(self, attempt: int) -> int:
+        n = self.scaling.num_workers
+        lo = self.scaling.min_workers or n
+        # back off by powers of two per failed attempt, never below min
+        for _ in range(attempt):
+            if n // 2 >= lo:
+                n //= 2
+        # start with what the host can schedule now, when that is at least
+        # min_workers, rather than wait for the full size
+        cap = self._capacity()
+        if cap is not None and lo <= cap < n:
+            n = cap
+        return max(n, lo)
+
+    def _per(self) -> dict:
+        """One rank's demand (the reference's ``resources_per_worker or
+        {"CPU": 1}``): what a rank leases."""
+        return rank_request(self.scaling) or {"CPU": 1}
+
+    def _available(self) -> Optional[dict]:
+        """Free whole cards and CPU slots in the ledger, or None when it
+        cannot be read."""
+        try:
+            free = default_ledger().free()
+        except (OSError, ValueError):
+            return None
+        return {"GPU": free.cards, "CPU": free.cpus}
+
+    def _capacity(self) -> Optional[int]:
+        avail = self._available()
+        if avail is None:
+            return None
+        cap = None
+        for k, v in self._per().items():
+            if v:
+                fit = int(avail.get(k, 0) // v)
+                cap = fit if cap is None else min(cap, fit)
+        return cap
+
+    def resize_decision(self, current_size: int) -> Optional[int]:
+        """Mid-run growth: when the host has room again (another group or
+        holder ended), grow back toward ``num_workers``. The target must
+        hold for 3 consecutive checks, so a slot free for a moment does not
+        restart the group. Shrinking goes through the failure path."""
+        want = self.scaling.num_workers
+        if current_size >= want:
+            return None
+        avail = self._available()
+        if avail is None:
+            return None
+        headroom = want - current_size
+        for k, v in self._per().items():
+            if v:
+                headroom = min(headroom, int(avail.get(k, 0) // v))
+        target = min(want, current_size + max(headroom, 0))
+        if target <= current_size:
+            self._last_target = None
+            self._stable_polls = 0
+            return None
+        if target == self._last_target:
+            self._stable_polls += 1
+        else:
+            self._last_target = target
+            self._stable_polls = 1
+        if self._stable_polls >= 3:
+            self._last_target = None
+            self._stable_polls = 0
+            return target
+        return None
 
 
 class FailurePolicy:
@@ -69,10 +172,18 @@ class TrainController:
         self.trial_id = trial_id
         self.state = RunState.INITIALIZING
         self.checkpoint_manager = CheckpointManager(run_config.checkpoint_config)
+        self.scaling_policy = (
+            ElasticScalingPolicy(scaling) if scaling.elastic else ScalingPolicy(scaling)
+        )
         self.failure_policy = FailurePolicy(run_config.failure_config.max_failures)
         self.metrics_history: list[dict] = []
         self.error: Optional[str] = None
         self._attempt = 0
+        self._resize_to: Optional[int] = None
+        self.num_resizes = 0
+        self.resize_checks = 0  # resize_decision calls
+        # each attempt's size, how it ended, and the seconds its teardown took
+        self.attempts: list[dict] = []
         # per attempt, the slowest rank's seconds from its spawn to its
         # train loop's start (imports, rendezvous, session)
         self.rank_startup_s: list[float] = []
@@ -84,6 +195,7 @@ class TrainController:
         while True:
             group = self._start_group()
             if group is None:
+                self.attempts[-1]["outcome"] = "not started"
                 # a start-up failure is retryable under the same budget as
                 # a failure while running
                 if self.failure_policy.should_retry():
@@ -97,10 +209,23 @@ class TrainController:
                 outcome = self._run_until_done(group, poll_interval)
             finally:
                 # ranks that all finished get time to exit on their own
+                t0 = time.monotonic()
                 group.shutdown(wait_s=30.0 if outcome == "done" else 0.0)
+                self.attempts[-1].update(outcome=outcome, teardown_s=time.monotonic() - t0)
             if outcome in ("done", "stopped"):
                 self.state = RunState.FINISHED
                 break
+            if outcome == "resize":
+                # restart at the new size from the latest checkpoint, not
+                # charged to the failure budget, in a fresh attempt
+                # directory (the torn-down group may have left a checkpoint
+                # half written)
+                self.state = RunState.RESTARTING
+                self.num_resizes += 1
+                self._attempt += 1
+                logger.info("elastic resize: restarting the worker group at %d ranks",
+                            self._resize_to)
+                continue
             if not self.failure_policy.should_retry():
                 self.state = RunState.ERRORED
                 if self.error is None:
@@ -120,6 +245,11 @@ class TrainController:
 
     def _start_group(self) -> Optional[WorkerGroup]:
         self.state = RunState.SCHEDULING
+        if self._resize_to is not None:
+            n, self._resize_to = self._resize_to, None
+        else:
+            n = self.scaling_policy.group_size(self._attempt)
+        self.attempts.append({"size": n})
         group = WorkerGroup(self.scaling, experiment_name=self.run_config.name or "train",
                             trial_id=self.trial_id)
         latest = self.checkpoint_manager.latest_checkpoint()
@@ -130,9 +260,10 @@ class TrainController:
                 self.train_fn, self.train_fn_config,
                 storage_dir=os.path.join(self.experiment_dir, f"attempt_{self._attempt:03d}"),
                 latest_checkpoint_path=latest.path if latest else None,
-                shards=self._dataset_shards(self.scaling.num_workers),
+                shards=self._dataset_shards(n),
+                num_workers=n,
             )
-        except Exception as e:  # a start-up failure
+        except Exception as e:  # a start-up failure (too few free cards among them)
             group.shutdown()
             self.error = f"failed to start worker group: {e!r}"
             self.state = RunState.ERRORED
@@ -153,10 +284,13 @@ class TrainController:
 
     def _run_until_done(self, group: WorkerGroup, poll_interval: float) -> str:
         """Poll loop. Returns 'done' (every rank finished its loop),
-        'stopped' (a ``RunConfig.stop`` criterion was met) or 'failed'."""
+        'stopped' (a ``RunConfig.stop`` criterion was met), 'failed', or
+        'resize' (an elastic group has room to grow)."""
         stop = self.run_config.stop or {}
         done: set[int] = set()
         startup: list[float] = []
+        can_resize = isinstance(self.scaling_policy, ElasticScalingPolicy)
+        last_resize_check = time.monotonic()
         while True:
             msgs, exited = group.poll(poll_interval)
             errors = []
@@ -189,6 +323,16 @@ class TrainController:
                 if rank not in done:
                     self.error = f"rank {rank} exited with code {code} before its loop finished"
                     return "failed"
+            if can_resize and time.monotonic() - last_resize_check >= 0.5:
+                last_resize_check = time.monotonic()
+                # only once a checkpoint exists: a restart without one
+                # would replay the run from its start
+                if self.checkpoint_manager.latest_checkpoint() is not None:
+                    self.resize_checks += 1
+                    target = self.scaling_policy.resize_decision(group.num_workers)
+                    if target is not None:
+                        self._resize_to = target
+                        return "resize"
 
 
 class TrainResultInternal:

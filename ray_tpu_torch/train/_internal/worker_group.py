@@ -5,15 +5,19 @@ Counterpart of ``ray_tpu/train/_internal/worker_group.py`` (``TrainWorker``
 placement group; the port's is ``multiprocessing`` with the ``spawn``
 context (CUDA forbids ``fork``), one process per rank:
 
-- *Cards.* Under ``use_gpu`` rank r gets its own card through
-  ``GPUAcceleratorManager.get_visibility_env``, in the environment the
-  child starts with (so no import in the child can initialise CUDA before
-  it is set); asking for more cards than are visible raises at once,
-  naming both counts (the counterpart of the placement group's
-  ``TimeoutError``, :164-171). CPU ranks see no card and split the
-  host's cores between them (``OMP_NUM_THREADS``, unless the caller set
-  it). The environment is ``_private/spawn_env.py``'s, which the process
-  actors of RLlib's remote half share.
+- *Cards.* Each rank leases what it needs from the host's card ledger
+  (``_private/cards.py``, ``rank_request``), all ranks or none, and holds
+  the lease for its life: under ``use_gpu`` rank r gets its own cards,
+  made visible through ``GPUAcceleratorManager.get_visibility_env`` in the
+  environment the child starts with (so no import in the child can
+  initialise CUDA before it is set). Asking for more cards than are
+  visible, or than are free, raises at once, naming the counts and the
+  holders (the counterpart of the placement group's ``TimeoutError``,
+  :164-171). CPU ranks see no card and split the host's cores between
+  them (``OMP_NUM_THREADS``, unless the caller set it), or run as many
+  threads as the CPU slots ``resources_per_worker`` leases them. The
+  environment is ``_private/spawn_env.py``'s, which the process actors of
+  RLlib's remote half share.
 - *Rendezvous.* In place of ``jax.distributed.initialize`` (:74-79) every
   rank calls ``torch.distributed.init_process_group``, NCCL under
   ``use_gpu`` and gloo otherwise, as the reference's
@@ -50,7 +54,8 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch._private.spawn_env import assign_cards, environ, process_env
+from ray_tpu_torch._private.cards import Lease, default_ledger
+from ray_tpu_torch._private.spawn_env import assign_cards, process_env, start_process
 from ray_tpu_torch.accelerator import GPUAcceleratorManager
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import ScalingConfig
@@ -60,21 +65,43 @@ from ray_tpu_torch.train.session import _set_session, _TrainSession
 _RENDEZVOUS_TIMEOUT = timedelta(seconds=300)
 
 
-def gpu_ids_per_rank(scaling: ScalingConfig, n: int) -> Optional[list[list[str]]]:
-    """Each rank's card ids under ``use_gpu`` (None for CPU ranks). Raises
-    when no card is visible or the ranks need more cards than are."""
-    if not scaling.use_gpu:
-        return None
-    per = scaling.worker_resources()["GPU"]
-    ok, why = GPUAcceleratorManager.validate_resource_request_quantity(per)
-    if not ok or per < 1:
-        raise ValueError(why or f"a GPU rank needs at least one card, got GPU: {per}")
-    if GPUAcceleratorManager.get_current_node_num_accelerators() == 0:
-        raise RuntimeError(
-            "ScalingConfig(use_gpu=True) but no CUDA device is visible; pass "
-            "ScalingConfig(use_gpu=False) to run the ranks on the CPU"
-        )
-    return assign_cards(n, int(per), "GPU ranks")
+def rank_request(scaling: ScalingConfig) -> dict:
+    """What one rank leases from the host's card ledger: its cards under
+    ``use_gpu``, and the CPU slots ``resources_per_worker`` names. An
+    elastic group of CPU ranks that names none takes one slot a rank, the
+    reference's ``resources_per_worker or {"CPU": 1}``: its capacity is
+    counted in what its ranks lease. A fixed group names what it needs or
+    leases no CPU slot (eight gloo ranks run on fewer cores)."""
+    res = scaling.resources_per_worker or {}
+    req = {}
+    if scaling.use_gpu:
+        req["GPU"] = float(scaling.worker_resources()["GPU"])
+    if "CPU" in res:
+        req["CPU"] = float(res["CPU"])
+    elif scaling.elastic and not scaling.use_gpu:
+        req["CPU"] = 1.0
+    return req
+
+
+def lease_ranks(scaling: ScalingConfig, n: int) -> list[Optional[Lease]]:
+    """Each rank's lease (None for a rank that asks for nothing), all or
+    none. Raises when no card is visible under ``use_gpu``, when the ranks
+    need more cards than are visible (naming both counts), and
+    ``LedgerError`` when too few are free (naming the holders): the
+    counterpart of the placement group's ``TimeoutError``
+    (``ray_tpu/train/_internal/worker_group.py:160-171``)."""
+    req = rank_request(scaling)
+    per = req.get("GPU", 0.0)
+    if scaling.use_gpu:
+        ok, why = GPUAcceleratorManager.validate_resource_request_quantity(per)
+        if not ok or per < 1:
+            raise ValueError(why or f"a GPU rank needs at least one card, got GPU: {per}")
+        if not default_ledger().card_ids():
+            raise RuntimeError(
+                "ScalingConfig(use_gpu=True) but no CUDA device is visible; pass "
+                "ScalingConfig(use_gpu=False) to run the ranks on the CPU"
+            )
+    return assign_cards(n, per, "GPU ranks" if per else "CPU ranks", cpu=req.get("CPU", 0.0))
 
 
 def _join(backend: str) -> tuple[int, torch.device]:
@@ -184,32 +211,38 @@ class WorkerGroup:
 
     def _spawn(self, n: int, target, args, inbound: bool) -> None:
         self.num_workers = n
-        gpu_ids = gpu_ids_per_rank(self.scaling, n)
-        backend = "nccl" if gpu_ids else "gloo"
-        self._store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
-                                    timeout=_RENDEZVOUS_TIMEOUT)
-        coordinator = f"127.0.0.1:{self._store.port}"
+        leases = lease_ranks(self.scaling, n)
+        backend = "nccl" if self.scaling.use_gpu else "gloo"
         mp = multiprocessing.get_context("spawn")
-        # CPU ranks share this host's cores (torchrun's default too)
+        # CPU ranks share this host's cores (torchrun's default too), or
+        # run as many threads as the CPU slots they lease
         threads = int(os.environ.get("OMP_NUM_THREADS") or (os.cpu_count() or 1) // n)
-        for rank in range(n):
-            env = {"RAY_TPU_WORLD_SIZE": str(n), "RAY_TPU_RANK": str(rank),
-                   "RAY_TPU_COORDINATOR": coordinator,
-                   **process_env(gpu_ids[rank] if gpu_ids else [], threads)}
-            recv, send = mp.Pipe(duplex=False)
-            inbox = outbox = None
-            if inbound:
-                inbox, outbox = mp.Pipe(duplex=False)
-            p = mp.Process(target=target, name=f"{self.experiment_name}-rank-{rank}",
-                           args=args(rank, n, backend, coordinator, send, inbox))
-            with environ(env):
-                p.start()
-            send.close()  # the child holds the write end
-            if inbox is not None:
-                inbox.close()  # ... and the read end of its inbox
-                self._inboxes[rank] = outbox
-            self.procs.append(p)
-            self._conns[rank] = recv
+        try:
+            self._store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                                        timeout=_RENDEZVOUS_TIMEOUT)
+            coordinator = f"127.0.0.1:{self._store.port}"
+            for rank, lease in enumerate(leases):
+                cards = lease.cards if lease is not None else []
+                env = {"RAY_TPU_WORLD_SIZE": str(n), "RAY_TPU_RANK": str(rank),
+                       "RAY_TPU_COORDINATOR": coordinator,
+                       **process_env(cards, int(lease.cpu) if lease and lease.cpu else threads)}
+                recv, send = mp.Pipe(duplex=False)
+                inbox = outbox = None
+                if inbound:
+                    inbox, outbox = mp.Pipe(duplex=False)
+                p = start_process(mp, target, args(rank, n, backend, coordinator, send, inbox),
+                                  name=f"{self.experiment_name}-rank-{rank}", env=env,
+                                  lease=lease)
+                send.close()  # the child holds the write end
+                if inbox is not None:
+                    inbox.close()  # ... and the read end of its inbox
+                    self._inboxes[rank] = outbox
+                self.procs.append(p)
+                self._conns[rank] = recv
+        finally:
+            for lease in leases:  # those no rank took (a failed start)
+                if lease is not None:
+                    lease.release()
 
     def send(self, rank: int, msg) -> None:
         """Write ``msg`` to the inbox of a rank from ``start_loop``; raises

@@ -4,10 +4,11 @@
 package's, value for value. ``ScalingConfig`` speaks in GPU ranks on one
 host: ``use_gpu`` (the default: entry points run on the card unless the
 caller asks for the CPU) gives each rank one card; ``use_tpu``,
-``topology`` and ``use_jax_distributed`` have no counterpart. Elastic
-bounds raise: resizing reads the cluster's resources through ray_tpu's
-runtime (``ray_tpu/train/_internal/controller.py:70-120``), and whether the
-port runs on that runtime is not decided.
+``topology`` and ``use_jax_distributed`` have no counterpart. The elastic
+bounds are the reference's: ``min_workers`` makes the group elastic
+(``train/_internal/controller.py:ElasticScalingPolicy``, sized by what the
+host's card ledger has free) and ``max_workers`` is accepted and read
+nowhere, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ class ScalingConfig:
     Reference contract: ``air/config.py`` ``ScalingConfig(num_workers,
     use_gpu, resources_per_worker, placement_strategy)``. The ranks are
     processes on this host; ``placement_strategy`` is kept for the
-    reference's signature and places nothing here."""
+    reference's signature and places nothing here. ``min_workers``: the
+    elastic range's floor (None: a fixed size); ``max_workers``: kept for
+    the reference's signature."""
 
     num_workers: int = 1
     use_gpu: bool = True
@@ -36,12 +39,12 @@ class ScalingConfig:
     def __post_init__(self):
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
-        if self.min_workers is not None or self.max_workers is not None:
-            raise NotImplementedError(
-                "elastic training (min_workers/max_workers) is not ported: resizing reads the "
-                "cluster's resources through ray_tpu's runtime, and whether the port runs on "
-                "that runtime is an open decision"
-            )
+        if self.min_workers is not None and self.min_workers > self.num_workers:
+            raise ValueError("min_workers must be <= num_workers")
+
+    @property
+    def elastic(self) -> bool:
+        return self.min_workers is not None
 
     def worker_resources(self) -> dict[str, float]:
         res = dict(self.resources_per_worker or {})

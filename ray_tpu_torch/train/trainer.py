@@ -17,8 +17,9 @@ name to ``JaxTrainer`` (:178). Two rules differ from the JAX trainer:
   raises ``TypeError`` at ``fit()`` (the JAX trainer cloudpickles it by
   value; the card's machine has no cloudpickle);
 - ``ScalingConfig.use_gpu`` defaults to True and never falls back: without
-  a card ``fit()`` raises, and CPU ranks are asked for with
-  ``use_gpu=False``.
+  a card, or with too few free in the host's card ledger
+  (``_private/cards.py``), ``fit()`` raises, and CPU ranks are asked for
+  with ``use_gpu=False``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import Any, Callable, Optional
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train._internal.controller import RunState, TrainController
-from ray_tpu_torch.train._internal.worker_group import gpu_ids_per_rank
+from ray_tpu_torch.train._internal.worker_group import lease_ranks
 
 
 class Result:
@@ -122,8 +123,12 @@ class DataParallelTrainer(BaseTrainer):
                 "reference with the standard pickle (a module-level function, not a "
                 f"closure or lambda): the ranks import it by name ({e})"
             ) from e
-        # no card, or too few cards for the ranks: raise here, at once
-        gpu_ids_per_rank(self.scaling_config, self.scaling_config.num_workers)
+        # no card, or too few visible or free for the ranks (an elastic
+        # group's min_workers): raise here, at once, naming the holders
+        scaling = self.scaling_config
+        for lease in lease_ranks(scaling, scaling.min_workers or scaling.num_workers):
+            if lease is not None:
+                lease.release()
         exp_dir = self._experiment_dir()
         controller = TrainController(
             train_fn=self.train_loop_per_worker,

@@ -861,3 +861,91 @@ def test_iter_device_batches_pinned_non_blocking_on_card():
     for i, b in enumerate(batches):
         assert b["x"].device.type == "cuda"
         assert torch.equal(b["x"].cpu(), torch.full((2, 4), i, dtype=torch.int32))
+
+
+# ---- the host's card ledger on the card -----------------------------------------
+
+
+def test_process_actor_on_the_card_holds_its_lease_on_card():
+    """A process actor with a lease of one card (a learner on cuda): its
+    pid holds the card in ``free()``, and its SIGKILL returns the card."""
+    _need_card()
+    import os
+    import signal
+
+    from ray_tpu_torch._private.cards import default_ledger
+    from ray_tpu_torch._private.process_actor import ProcessActor, get
+    from ray_tpu_torch._private.spawn_env import assign_cards
+    from ray_tpu_torch.rllib import RLModuleSpec
+    from ray_tpu_torch.rllib.core.learner import TorchLearner
+
+    ledger = default_ledger()
+    before = ledger.free().cards
+    lease, = assign_cards(1, 1, "holders")
+    actor = ProcessActor(TorchLearner, (RLModuleSpec(observation_dim=4, action_dim=2),),
+                         {"device": "cuda"}, lease=lease, name="holder")
+    try:
+        get(actor.ready, timeout=300)
+        assert get(actor.call("placement")) == ["cuda"]
+        assert ledger.free().cards == before - 1
+        assert [h.pid for h in ledger.holders()] == [actor.pid]
+        os.kill(actor.pid, signal.SIGKILL)
+        actor._proc.join(30)
+        assert ledger.free().cards == before and ledger.holders() == []
+    finally:
+        actor.kill()
+
+
+def test_worker_group_shutdown_leaves_no_lease_on_card():
+    """One NCCL rank (``start_loop``) holds its card while it lives;
+    ``WorkerGroup.shutdown`` leaves no lease behind."""
+    _need_card()
+    from ray_tpu_torch._private.cards import default_ledger
+    from ray_tpu_torch.train import ScalingConfig
+    from ray_tpu_torch.train._internal.worker_group import WorkerGroup
+
+    ledger = default_ledger()
+    before = ledger.free().cards
+    group = WorkerGroup(ScalingConfig(num_workers=1), experiment_name="held")
+    try:
+        group.start_loop(_wait_for_stop, None)
+        h, = ledger.holders()
+        assert h.pid == group.procs[0].pid and list(h.gpu.values()) == [1.0]
+        assert ledger.free().cards == before - 1
+    finally:
+        group.shutdown()
+    assert ledger.holders() == [] and ledger.free().cards == before
+
+
+def _wait_for_stop(config, conn, inbox, device):
+    inbox.recv()
+
+
+def test_elastic_fit_one_rank_on_card(tmp_path):
+    """``ScalingConfig(num_workers=n + 1, min_workers=1)`` with n free
+    cards starts at n ranks (the capacity cap), checkpoints its state every
+    2 steps, polls ``resize_decision`` without firing, charges no failure
+    and leaves no lease; tiny bf16 model, splash attention."""
+    _need_card()
+    from ray_tpu_torch._private.cards import default_ledger
+    from ray_tpu_torch.examples import train_llama_dp as ex
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    free = default_ledger().free().cards
+    kw = dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=256, dtype=torch.bfloat16,
+              attention="splash")
+    config = {"model": "tiny", "model_kwargs": kw, "steps": 40, "global_batch": 2 * free,
+              "seq_len": 64, "state_checkpoint_every": 2}
+    trainer = TorchTrainer(
+        ex.train_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=free + 1, min_workers=1),
+        run_config=RunConfig(name="elastic", storage_path=str(tmp_path)),
+    )
+    result = trainer.fit()
+    assert result.error is None, result.error
+    c = trainer._controller
+    assert [a["size"] for a in c.attempts] == [free]
+    assert {m["world_size"] for m in result.metrics_history} == {free}
+    assert [m["step"] for m in result.metrics_history] == list(range(1, 41))
+    assert (c.num_resizes, c.failure_policy.failures) == (0, 0)
+    assert default_ledger().holders() == []

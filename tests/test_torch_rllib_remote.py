@@ -27,6 +27,7 @@ import torch
 
 from ray_tpu_torch._private.process_actor import (ActorDiedError, ProcessActor, RemoteError,
                                                   get, wait)
+from ray_tpu_torch._private.cards import CardLedger, use_ledger
 from ray_tpu_torch._private.spawn_env import assign_cards
 from ray_tpu_torch.rllib import EnvRunnerGroup, IMPALAConfig, LearnerGroup, RLModuleSpec
 from ray_tpu_torch.rllib.env.multi_agent import MultiAgentCartPole, MultiAgentEnvRunnerGroup
@@ -298,13 +299,17 @@ def test_process_actor_death_fails_pending_calls_at_once():
     assert a._proc.exitcode is not None and b._proc.exitcode is not None
 
 
-def test_card_requests_name_both_counts(monkeypatch):
-    """Remote learners take one card each; too few visible cards raise
+def test_card_requests_name_both_counts(monkeypatch, tmp_path):
+    """Remote learners take one card each, leased from the host's card
+    ledger (here a test ledger of one card); too few visible cards raise
     naming both counts, and none visible raises (no CPU fallback)."""
-    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
-    assert assign_cards(1, 1, "remote learners") == [["0"]]
-    with pytest.raises(RuntimeError, match="2 remote learners of 1 card.* need 2 cards, but 1 are"):
-        assign_cards(2, 1, "remote learners")
+    with use_ledger(CardLedger(str(tmp_path), cards=["0"], cpus=4)):
+        leases = assign_cards(1, 1, "remote learners")
+        assert [lease.cards for lease in leases] == [["0"]]
+        leases[0].release()
+        with pytest.raises(RuntimeError,
+                           match="2 remote learners of 1 card.* need 2 cards, but 1 are"):
+            assign_cards(2, 1, "remote learners")
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
     with pytest.raises(RuntimeError, match="need a CUDA device, but none is visible"):
         assign_cards(1, 1, "remote learners")

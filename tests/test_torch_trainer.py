@@ -3,7 +3,7 @@
 Counterparts of ``tests/test_train.py`` (trainer contract, report and
 checkpoint round trip, failure retries, stop criteria, dataset shards,
 top-k retention), the raises that differ (a closure train function, a GPU
-run without a card, elastic bounds), and data parallelism: a 2-rank gloo
+run without a card), and data parallelism: a 2-rank gloo
 step (fp32, masks that differ between the ranks) against JAX's
 ``make_train_step`` on a dp=2 mesh over the same global batch, within 1e-5
 relative on the loss, the grad norm and each param tensor (its norm) after
@@ -288,12 +288,6 @@ def test_use_gpu_without_a_card_raises(storage, monkeypatch):
         TorchTrainer(_loop_steps, train_loop_config={"steps": 1},
                      scaling_config=ScalingConfig(num_workers=2),
                      run_config=RunConfig(storage_path=storage)).fit()
-
-
-@pytest.mark.parametrize("kw", [{"min_workers": 1}, {"max_workers": 4}])
-def test_elastic_bounds_raise(kw):
-    with pytest.raises(NotImplementedError, match="elastic"):
-        ScalingConfig(num_workers=2, **kw)
 
 
 def test_worker_resources_name_one_gpu_per_rank():
