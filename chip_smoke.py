@@ -4,7 +4,8 @@
 and decode disaggregated, and offline batch inference), its
 training path (dense and MoE, remat "full" and "dots"), its int8 weight
 path, the entry() twin, the Train layer's train -> checkpoint -> serve
-path and its elastic resizing on the host's card ledger, and the RL stack
+path, its elastic resizing on the host's card ledger and Tune's trials on
+it, and the RL stack
 (ray_tpu_torch.rllib), its runner and learner processes included.
 
 Run from the repository root on a machine with one CUDA card:
@@ -138,6 +139,18 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 learner's (a control must miss), and a two-policy PPO at
                 {"GPU": 1} whose second group raises naming the first's
                 learner. No lease left.
+ 15b. tune   — Tune on the port's own processes through Tuner.fit
+                (tools/tune_bench.py) at the bench widths, ELASTIC_DEPTH
+                layers, 4 x 2048 tokens a step: (a) four ASHA trials of the
+                example loop over a 4-point learning-rate grid at
+                {"GPU": 0.25} each, all four leases held on the card at once,
+                each trial's peak memory, ASHA's decisions replayed equal,
+                the card's tokens/s over a step the four take together; (b)
+                TorchTrainer as a trainable (the trial a CPU slot, its nested
+                rank the card), losses within rel 1e-6 of direct fits, one
+                trial's tokens/s alone; (c) PPO.as_trainable at {"GPU": 0.5}
+                a trial. Attention launches 2L / L / L a step, counted in the
+                trial processes and the nested rank. No lease left.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -2479,6 +2492,61 @@ def phase_elastic(torch, card: str) -> dict:
     return out
 
 
+def phase_tune(torch, card: str) -> dict:
+    """Tune on the port's own processes, through Tuner.fit as a user calls
+    it (ray_tpu_torch.tools.tune_bench) at the bench widths (bench.py:31-47),
+    depth cut to ELASTIC_DEPTH layers, batch 4 x 2048:
+
+    (a) four trials of the example train loop over a 4-point learning-rate
+    grid, each with_resources({"GPU": 0.25}), under ASHA (max_t 6 steps,
+    grace 2, reduction factor 2, loss, min): four trial leases held on the
+    card at once, each trial's peak memory, the controller's results
+    replayed through a fresh ASHA to the same decisions, the card's total
+    tokens/s over step 2 with the four together.
+    (b) TorchTrainer(train_loop, ScalingConfig(num_workers=1, use_gpu=True))
+    as a trainable over a 2-point grid, max_concurrent_trials=1: the trial
+    leases a CPU slot and its nested rank the card; each trial's losses
+    within rel 1e-6 of a direct fit() at the same learning rate; the
+    nested rank's steps give one trial's tokens/s alone on the card.
+    (c) PPO.as_trainable at {"GPU": 0.5} a trial, 2 learning rates, 2
+    iterations, the learner on the card.
+    The attention launches of (a) and (b), counted in the trial processes
+    and the nested ranks, are 2L / L / L a step."""
+    from ray_tpu_torch.tools import tune_bench as tb
+
+    if tb.DEPTH != ELASTIC_DEPTH:
+        raise AssertionError(f"tune: tune_bench's depth {tb.DEPTH} != {ELASTIC_DEPTH}")
+    gc_collect(torch)  # the parent holds no model while the trials run
+    parts = {"asha_shared": tb.asha_shared("cuda"),
+             "trainer_trainable": tb.trainer_trainable("cuda"),
+             "ppo_trainable": tb.ppo_trainable("cuda")}
+    for name, part in parts.items():
+        emit({"phase": "tune", "card": card, **part})
+    failed = {name: p["failed_checks"] for name, p in parts.items() if not p["ok"]}
+    asha, trainer = parts["asha_shared"], parts["trainer_trainable"]
+    launches = {k: asha["launches"][k] + trainer["launches"][k] for k in tb.ATTENTION}
+    steps = asha["steps_total"] + trainer["steps_total"]
+    L = ELASTIC_DEPTH
+    want = dict(zip(tb.ATTENTION, (2 * L * steps, L * steps, L * steps)))
+    if launches != want:
+        failed["launches"] = f"{launches} != {want} ({steps} steps of {L} layers)"
+    if failed:
+        raise AssertionError(f"tune: {failed}")
+    out = {"phase": "tune", "card": card,
+           "layers": f"{L} of 16 (bench widths; depth cut as the elastic phase's)",
+           "launches": launches, "steps": steps,
+           "most_trial_leases_held": asha["most_trial_leases_held"],
+           "peak_memory_gb": asha["peak_memory_gb"],
+           "shared_tokens_per_s": asha["shared_tokens_per_s"],
+           "alone_tokens_per_s": trainer["alone_tokens_per_s"],
+           "asha_decisions_equal": asha["decisions"] == asha["replayed_decisions"],
+           "trainer_max_rel_diff": trainer["max_rel_diff"],
+           "trial_startup_s": asha["trial_startup_s"],
+           "fit_s": {name: p["fit_s"] for name, p in parts.items()}}
+    emit(out)
+    return out
+
+
 def emit_holders(phase: str) -> None:
     """The card ledger's live leases after a phase that spawns processes:
     a rank or actor that outlived its phase shows here, under its pid."""
@@ -2513,7 +2581,8 @@ def main() -> int:
 
     timings = {}
 
-    spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "parallel", "rllib_remote"}
+    spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "parallel",
+                "rllib_remote"}
 
     def timed_phase(name, fn):
         t = time.perf_counter()
@@ -2546,6 +2615,7 @@ def main() -> int:
     timed_phase("graft_entry", phase_graft_entry)
     train_serve = timed_phase("train_serve", lambda torch, card: phase_train_serve(torch, card, train))
     elastic = timed_phase("elastic", phase_elastic)
+    tune = timed_phase("tune", phase_tune)
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
@@ -2625,6 +2695,9 @@ def main() -> int:
                              "train_serve": train_serve["launches"][name],
                              # the elastic group's one rank (ELASTIC_DEPTH layers, 6 steps)
                              "elastic": elastic["launches"][name],
+                             # the tune phase's trial processes and nested
+                             # rank (ELASTIC_DEPTH layers), their own counters
+                             "tune": tune["launches"][name],
                              # the sweep's first step on each mesh, counted in the rank
                              "parallel": parallel["launches"][key],
                              "rllib": rllib["launches"][name],

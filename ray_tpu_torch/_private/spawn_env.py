@@ -7,18 +7,28 @@ thread count from the environment it starts with, before any import in it
 can initialise CUDA or size an OpenMP pool, so the parent sets them around
 ``Process.start`` (``environ``). Their cards and CPU slots are leased from
 the host's card ledger (``_private/cards.py``) and held by the child
-(``start_process``).
+(``start_process``). A process that spawns processes of its own and must
+not be outlived by them (a Tune trial, ``tune/tuner.py``) leads a process
+group (``lead_process_group``), which its parent ends whole
+(``end_process_group``).
 """
 
 from __future__ import annotations
 
 import math
+import multiprocessing
 import os
-from contextlib import contextmanager
+import signal
+import threading
+import time
+from contextlib import contextmanager, suppress
 from typing import Optional
 
 from ray_tpu_torch._private.cards import CardLedger, Lease, default_ledger
 from ray_tpu_torch.accelerator import GPUAcceleratorManager
+
+PARENT_POLL_S = 0.2  # how often a group's leader looks for its parent
+GROUP_END_S = 10.0  # how long end_process_group waits for the group to exit
 
 
 @contextmanager
@@ -92,3 +102,51 @@ def process_env(cards: list, cpu_threads: int) -> dict:
         return GPUAcceleratorManager.get_visibility_env(cards)
     return {**GPUAcceleratorManager.get_visibility_env([]),
             "OMP_NUM_THREADS": str(max(1, cpu_threads))}
+
+
+def lead_process_group() -> None:
+    """Make this spawned process the leader of a process group of its own,
+    which every process it spawns joins, and end that group (SIGKILL) when
+    this process's parent goes: a thread compares ``os.getppid()`` with the
+    parent's pid every ``PARENT_POLL_S``. Call it first, before spawning
+    anything."""
+    os.setpgid(0, 0)
+    parent = multiprocessing.parent_process()
+    parent_pid = parent.pid if parent is not None else os.getppid()
+
+    def watch():
+        while os.getppid() == parent_pid:
+            time.sleep(PARENT_POLL_S)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=watch, name="parent-watch", daemon=True).start()
+
+
+def _group_members(pgid: int) -> list[int]:
+    """The pids of the live (not zombie) processes of process group ``pgid``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            out.append(int(entry))
+    return out
+
+
+def end_process_group(pgid: int) -> list[int]:
+    """SIGKILL every process of the group that ``lead_process_group`` made
+    ``pgid`` lead, and wait up to ``GROUP_END_S`` for them to exit (their
+    leases with them). Returns the pids still alive at the deadline."""
+    with suppress(ProcessLookupError, PermissionError):
+        os.killpg(pgid, signal.SIGKILL)
+    deadline = time.monotonic() + GROUP_END_S
+    left = _group_members(pgid)
+    while left and time.monotonic() < deadline:
+        time.sleep(0.02)
+        left = _group_members(pgid)
+    return left

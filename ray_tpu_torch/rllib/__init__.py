@@ -8,8 +8,9 @@ actors are the port's own spawned processes (``_private/process_actor.py``):
 remote env runners (``num_env_runners > 0``, replaced when they fail),
 IMPALA and APPO's asynchronous pipeline over them, remote learners
 (``num_learners > 0``, one card each) and SAC's runners.
-``Algorithm.as_trainable`` raises ``NotImplementedError``: Tune is not
-ported.
+``Algorithm.as_trainable`` gives ``ray_tpu_torch.tune`` a trainable that
+builds the algorithm in the trial's process, its learner on the trial's
+device.
 """
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig

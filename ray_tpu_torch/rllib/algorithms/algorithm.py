@@ -11,7 +11,8 @@ in this process or, with ``num_env_runners > 0``, in runner processes;
 ``resources_per_learner`` of the host's cards (one card each unless it
 says otherwise; ``_private/process_actor.py``). ``stop`` ends those
 processes. ``save`` / ``restore`` go through ``train/checkpoint.py``, so a
-JAX checkpoint restores here. ``as_trainable`` raises: Tune is not ported.
+JAX checkpoint restores here. ``as_trainable`` gives ``ray_tpu_torch.tune`` a
+trainable that builds the algorithm in the trial's process.
 """
 
 from __future__ import annotations
@@ -360,13 +361,40 @@ class Algorithm:
         self.set_state(_host(restore_state_dict(path, like=self.get_state())))
 
     @classmethod
-    def as_trainable(cls, base_config: AlgorithmConfig):
-        """The JAX package's Tune adapter. Tune is not ported: it is a part
-        of ray_tpu's runtime, which the port neither imports nor copies."""
-        raise NotImplementedError(
-            f"{cls.__name__}.as_trainable: Tune is not ported (it is ray_tpu's runtime, "
-            "which the port does not import)"
-        )
+    def as_trainable(cls, base_config: AlgorithmConfig) -> "AlgorithmTrainable":
+        """Adapter for ray_tpu_torch.tune (reference: Algorithm IS a
+        Trainable; the JAX package's closure,
+        ``ray_tpu/rllib/algorithms/algorithm.py:330-352``, is a picklable
+        object here)."""
+        return AlgorithmTrainable(cls, base_config)
+
+
+class AlgorithmTrainable:
+    """An algorithm as a Tune trainable: each trial copies ``base_config``,
+    sets the attributes the trial's config names, builds the algorithm with
+    its learner on the trial's device (``train.get_device()``: the trial's
+    card when it leases a share of one, else the CPU) and reports
+    ``train()`` ``config["stop_iters"]`` times (default 10), then stops it.
+    It travels to the trial process with the standard pickle."""
+
+    def __init__(self, algo_class: type, base_config: AlgorithmConfig):
+        self.algo_class = algo_class
+        self.base_config = base_config
+        self.__name__ = f"{algo_class.__name__}_trainable"
+
+    def __call__(self, config: dict) -> None:
+        from ray_tpu_torch.train.session import get_device, report
+
+        c = self.base_config.copy()
+        for k, v in (config or {}).items():
+            if hasattr(c, k):
+                setattr(c, k, v)
+        algo = c.build(device=get_device())
+        try:
+            for _ in range((config or {}).get("stop_iters", 10)):
+                report(algo.train())
+        finally:
+            algo.stop()
 
 
 def _host(tree):

@@ -32,6 +32,12 @@ context (CUDA forbids ``fork``), one process per rank:
 - *Results* come back over one pipe per rank, read by ``poll``, which waits
   on the pipes and the processes' sentinels together, so a rank that dies
   is seen as soon as its pipe is drained.
+- *Tune trials* (``tune/tuner.py``) are 1-rank groups started with a
+  lease the controller took (``start(leases=...)``: a trial may hold a
+  share of a card, which Train ranks may not) and a ledger: the trial
+  process leads a process group of its own
+  (``spawn_env.lead_process_group``), so that what it spawns ends with it,
+  and leases what it spawns from the driver's ledger (``use_ledger``).
 - *Long-lived ranks* (``start_loop``, the serving gang of ``llm/gang.py``)
   take the same environment and rendezvous and also get an inbound pipe:
   ``send(rank, msg)`` writes to it, and the rank's loop reads its messages
@@ -41,6 +47,7 @@ context (CUDA forbids ``fork``), one process per rank:
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import pickle
@@ -54,8 +61,9 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch._private.cards import Lease, default_ledger
-from ray_tpu_torch._private.spawn_env import assign_cards, process_env, start_process
+from ray_tpu_torch._private.cards import CardLedger, Lease, default_ledger, use_ledger
+from ray_tpu_torch._private.spawn_env import (assign_cards, lead_process_group, process_env,
+                                              start_process)
 from ray_tpu_torch.accelerator import GPUAcceleratorManager
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import ScalingConfig
@@ -122,10 +130,15 @@ def _join(backend: str) -> tuple[int, torch.device]:
 
 
 def _rank_main(backend: str, context_kwargs: dict, storage_dir: str,
-               checkpoint_path: Optional[str], blob: bytes, conn, spawned_at: float) -> None:
+               checkpoint_path: Optional[str], blob: bytes, conn, spawned_at: float,
+               ledger: Optional[CardLedger] = None) -> None:
     """A rank process's body: rendezvous, session, train loop. Sends
-    ``started``, then the loop's results, then ``done`` or ``error``."""
+    ``started``, then the loop's results, then ``done`` or ``error``. With
+    ``ledger`` (a Tune trial) it first becomes a process group's leader and
+    runs the loop with ``ledger`` as its default."""
     rank = int(os.environ["RAY_TPU_RANK"])
+    if ledger is not None:
+        lead_process_group()
     try:
         rank, device = _join(backend)
         train_fn, config, shards = pickle.loads(blob)
@@ -134,10 +147,11 @@ def _rank_main(backend: str, context_kwargs: dict, storage_dir: str,
         _set_session(_TrainSession(TrainContext(**context_kwargs), storage_dir, chk, shards,
                                    conn, device))
         conn.send({"kind": "started", "rank": rank, "startup_s": time.time() - spawned_at})
-        if config is not None:
-            train_fn(config)
-        else:
-            train_fn()
+        with use_ledger(ledger) if ledger is not None else contextlib.nullcontext():
+            if config is not None:
+                train_fn(config)
+            else:
+                train_fn()
     except BaseException:
         conn.send({"kind": "error", "rank": rank, "error": traceback.format_exc()})
         sys.exit(1)  # the finally below still runs
@@ -186,17 +200,23 @@ class WorkerGroup:
 
     def start(self, train_fn, config: Optional[dict], storage_dir: str,
               latest_checkpoint_path: Optional[str], shards: list[dict],
-              num_workers: Optional[int] = None) -> None:
-        """Spawn the ranks; ``shards[r]`` is rank r's {name: dataset shard}."""
+              num_workers: Optional[int] = None, *, leases: Optional[list] = None,
+              trial_name: str = "", ledger: Optional[CardLedger] = None) -> None:
+        """Spawn the ranks; ``shards[r]`` is rank r's {name: dataset shard}.
+        ``leases`` (one a rank) are taken by the caller in place of
+        ``lease_ranks``'; ``trial_name`` and ``ledger`` make the ranks Tune
+        trials (``_rank_main``)."""
         def args(rank, n, backend, coordinator, send, inbox):
             context = dict(world_size=n, world_rank=rank, local_rank=rank, local_world_size=n,
                            node_rank=0, experiment_name=self.experiment_name,
-                           trial_id=self.trial_id, coordinator_address=coordinator)
+                           trial_name=trial_name, trial_id=self.trial_id,
+                           coordinator_address=coordinator)
             blob = pickle.dumps((train_fn, config, shards[rank]))
             return (backend, context, storage_dir, latest_checkpoint_path, blob, send,
-                    time.time())
+                    time.time(), ledger)
 
-        self._spawn(num_workers or self.scaling.num_workers, _rank_main, args, inbound=False)
+        self._spawn(num_workers or self.scaling.num_workers, _rank_main, args, inbound=False,
+                    leases=leases)
 
     def start_loop(self, loop_fn, config, num_workers: Optional[int] = None) -> None:
         """Spawn ranks that each run ``loop_fn(config, conn, inbox, device)``
@@ -209,9 +229,9 @@ class WorkerGroup:
 
         self._spawn(num_workers or self.scaling.num_workers, _loop_main, args, inbound=True)
 
-    def _spawn(self, n: int, target, args, inbound: bool) -> None:
+    def _spawn(self, n: int, target, args, inbound: bool, leases: Optional[list] = None) -> None:
         self.num_workers = n
-        leases = lease_ranks(self.scaling, n)
+        leases = leases if leases is not None else lease_ranks(self.scaling, n)
         backend = "nccl" if self.scaling.use_gpu else "gloo"
         mp = multiprocessing.get_context("spawn")
         # CPU ranks share this host's cores (torchrun's default too), or
@@ -249,13 +269,19 @@ class WorkerGroup:
         ``OSError`` when the rank has gone."""
         self._inboxes[rank].send(msg)
 
+    def waitables(self) -> list:
+        """What ``poll`` waits on: the undrained pipes and the live ranks'
+        sentinels (for ``multiprocessing.connection.wait`` over several
+        groups)."""
+        return ([c for r, c in self._conns.items() if r not in self._eof]
+                + [p.sentinel for p in self.procs if p.exitcode is None])
+
     def poll(self, timeout: float) -> tuple[list[dict], dict[int, int]]:
         """Wait up to ``timeout`` for a message or an exit. Returns the
         messages received (each rank's in the order sent) and {rank:
         exitcode} for ranks that have exited and whose pipes are drained."""
-        live = [c for r, c in self._conns.items() if r not in self._eof]
-        if live:
-            wait(live + [p.sentinel for p in self.procs if p.exitcode is None], timeout)
+        if any(r not in self._eof for r in self._conns):
+            wait(self.waitables(), timeout)
         # read before draining: a rank seen exited here has all its
         # messages in its pipe, so the drain below reaches its end
         exited = {r: p.exitcode for r, p in enumerate(self.procs) if p.exitcode is not None}

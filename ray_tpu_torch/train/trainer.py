@@ -90,6 +90,43 @@ class BaseTrainer:
     def fit(self) -> Result:
         raise NotImplementedError
 
+    def as_trainable(self) -> "TrainerTrainable":
+        """Adapt this trainer into a Tune trainable — the integration point
+        Tune uses to sweep over trainers (reference: ``base_trainer.py``
+        Trainable conversion; the JAX package's closure,
+        ``ray_tpu/train/trainer.py:86-112``, is a picklable object here)."""
+        return TrainerTrainable(self)
+
+
+class TrainerTrainable:
+    """A trainer as a Tune trainable. Each trial runs a deep copy of the
+    trainer (trials must not share its RunConfig, or every trial's inner
+    experiment directory would alias), named after the trial id, with
+    ``config["train_loop_config"]`` merged over its own; it fits it and
+    reports the result's metrics and checkpoint once. It travels to the
+    trial process with the standard pickle, the trainer inside it."""
+
+    def __init__(self, trainer: BaseTrainer):
+        self.trainer = trainer
+        self.__name__ = f"{type(trainer).__name__}_trainable"
+
+    def __call__(self, config: dict) -> None:
+        import copy
+
+        from ray_tpu_torch.train.session import get_context, report
+
+        t = copy.deepcopy(self.trainer)
+        trial_id = get_context().trial_id or uuid.uuid4().hex[:8]
+        base = t.run_config.name or type(t).__name__
+        t.run_config.name = f"{base}_{trial_id}"
+        # per-trial override: config may carry train_loop_config updates
+        if "train_loop_config" in config and hasattr(t, "train_loop_config"):
+            merged = dict(t.train_loop_config or {})
+            merged.update(config["train_loop_config"])
+            t.train_loop_config = merged
+        res = t.fit()
+        report(res.metrics, checkpoint=res.checkpoint)
+
 
 class DataParallelTrainer(BaseTrainer):
     """Runs one train function on N ranks (reference:

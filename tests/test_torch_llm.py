@@ -287,6 +287,9 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert REPO / "ray_tpu_torch" / "llm" / "disagg.py" in files
     assert REPO / "ray_tpu_torch" / "llm" / "batch.py" in files
     assert REPO / "ray_tpu_torch" / "rllib" / "core" / "learner.py" in files
+    assert REPO / "ray_tpu_torch" / "tune" / "tuner.py" in files
+    assert REPO / "ray_tpu_torch" / "tune" / "schedulers" / "pb2.py" in files
+    assert REPO / "ray_tpu_torch" / "tune" / "search" / "gp_search.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -14,8 +14,8 @@ in other orders):
   logp, advantages and value targets 1e-5.
 
 Then the single-process tests of ``tests/test_rllib.py`` against the
-port, at their own settings and limits, and ``as_trainable`` raising
-``NotImplementedError`` (Tune is not ported). The remote half is
+port, at their own settings and limits, and ``as_trainable``'s trainable
+(the Tune path itself is ``tests/test_torch_tune_trials.py``). The remote half is
 ``tests/test_torch_rllib_remote*.py``.
 """
 
@@ -326,10 +326,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
         RLModuleSpec().build()
 
 
-def test_as_trainable_raises_tune_is_not_ported():
+def test_as_trainable_raises_tune_is_not_ported(monkeypatch):
+    """Its name is from before Tune was ported. It checks the adapter that
+    ``as_trainable`` now gives (it pickles by reference, as it travels to a
+    trial process) and its refusal to run without a card: called outside a
+    trial on a host that shows none, it raises rather than put the learner
+    on the CPU."""
+    import pickle
+
+    from ray_tpu_torch.rllib.algorithms.algorithm import AlgorithmTrainable
+
     base = PPOConfig().environment("CartPole-v1").env_runners(rollout_fragment_length=8)
-    with pytest.raises(NotImplementedError, match="Tune is not ported"):
-        PPO.as_trainable(base)
+    trainable = PPO.as_trainable(base)
+    assert isinstance(trainable, AlgorithmTrainable) and trainable.algo_class is PPO
+    again = pickle.loads(pickle.dumps(trainable))
+    assert again.algo_class is PPO and again.base_config.lr == base.lr
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainable({"stop_iters": 1})
 
 
 # ---- tests/test_rllib.py's single-process tests, against the port ----------------
