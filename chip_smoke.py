@@ -5,7 +5,7 @@ and decode disaggregated, and offline batch inference), its
 training path (dense and MoE, remat "full" and "dots"), its int8 weight
 path, the entry() twin, the Train layer's train -> checkpoint -> serve
 path, its elastic resizing on the host's card ledger and Tune's trials on
-it, and the RL stack
+it, Data's actor pools and Train ingest, and the RL stack
 (ray_tpu_torch.rllib), its runner and learner processes included.
 
 Run from the repository root on a machine with one CUDA card:
@@ -61,9 +61,11 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 RMSNorm launches (2L+1) a prefill and a step; a handoff one
                 position short must change the tokens; the handoff's bytes,
                 its ms each way, TTFT through the router, decode tok/s.
-  5c. batch   — build_llm_processor (llm/batch.py) over 32 prompts in blocks
-                of 16, greedy, 32 tokens: each row's text equal to the
-                processor engine's generate; graph replays and RMSNorm
+  5c. batch   — build_llm_processor (llm/batch.py) with concurrency 0 (task
+                stages on driver threads, one engine in this process) over
+                a port Dataset of 32 prompts in blocks of 16, greedy, 32
+                tokens: each row's text equal to the processor engine's
+                generate, in input order; graph replays and RMSNorm
                 launches as the serve phase derives them; rows/s, tok/s.
   5d. decode_graph — the engine's DecodeGraph at full 3B width and depth
                 (well-conditioned weights, 16 rows at 96 positions): 8
@@ -151,6 +153,20 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 trial's tokens/s alone; (c) PPO.as_trainable at {"GPU": 0.5}
                 a trial. Attention launches 2L / L / L a step, counted in the
                 trial processes and the nested rank. No lease left.
+ 15c. data   — Data on the port's own processes (tools/data_bench.py): (a)
+                build_llm_processor(..., concurrency=2) over the batch
+                phase's 32 prompts (data.from_items, parallelism 2) on two
+                actor processes, each leasing half of the card and building
+                one 3B engine: every text equal to the batch phase's, in
+                order, every decode step a graph replay, RMSNorm launches
+                in each actor equal to its engine's count, two half-card
+                leases while it runs and none after; rows/s, tok/s, each
+                actor's start-up, engine build and peak memory; (b) a
+                one-rank TorchTrainer at the bench widths, ELASTIC_DEPTH
+                layers, fed a port Dataset of seeded token rows through
+                get_dataset_shard and iter_device_batches: its 3 losses
+                equal to the same steps in this process, attention
+                launches 2L / L / L a step in the rank.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -1753,37 +1769,52 @@ def phase_disagg(torch, card: str) -> dict:
     return out
 
 
+BATCH_SAMPLING = {"max_tokens": 32, "temperature": 0.0, "ignore_eos": True}
+
+
+def _batch_prompts() -> list:
+    """The batch phase's 32 prompts: the serve phase's 16 and 16 more."""
+    return _serve_prompts() + [f"Row {i:02d}: summarise offline batch inference on a card."
+                               for i in range(16)]
+
+
 def phase_batch(torch, card: str) -> dict:
-    """Offline batch inference (llm/batch.py): build_llm_processor over the
-    serve phase's 16 prompts and 16 more, in blocks of 16, greedy, 32
-    tokens, on llama3.2-3b (full width and depth, seeded bf16 weights, the
-    fused RMSNorm; prefix caching off, so every prefill is cold). Limits:
-    each row's text equal to TorchEngine.generate's for the same prompt on
-    the processor's engine; every decode step a graph replay; RMSNorm
+    """Offline batch inference (llm/batch.py): build_llm_processor with
+    concurrency 0 (task stages on the driver's threads, one engine in this
+    process) over a port Dataset of the serve phase's 16 prompts and 16
+    more, in 2 blocks of 16, greedy, 32 tokens, on llama3.2-3b (full width
+    and depth, seeded bf16 weights, the fused RMSNorm; prefix caching off,
+    so every prefill is cold). Limits: each row's text equal to
+    TorchEngine.generate's for the same prompt on the processor's engine,
+    rows in input order; every decode step a graph replay; RMSNorm
     launches, set to 0 just before the processor runs, equal to the count
-    the engine's counters give. Reported: rows/s and output tok/s."""
+    the engine's counters give. Reported: rows/s and output tok/s. The
+    texts go on to the data phase."""
+    from ray_tpu_torch import data
     from ray_tpu_torch.llm import ProcessorConfig, SamplingParams, build_llm_processor
     from ray_tpu_torch.llm import batch
     from ray_tpu_torch.ops import rmsnorm
 
     cfg = _serve_config({}, enable_prefix_caching=False)
-    sampling = {"max_tokens": 32, "temperature": 0.0, "ignore_eos": True}
-    prompts = _serve_prompts() + [f"Row {i:02d}: summarise offline batch inference on a card."
-                                  for i in range(16)]
-    proc = build_llm_processor(ProcessorConfig(llm_config=cfg, batch_size=16,
-                                               sampling_params=sampling))
-    list(proc([{"prompt": ["warm up " * 12]}]))  # builds the process's engine
+    prompts = _batch_prompts()
+    proc = build_llm_processor(ProcessorConfig(llm_config=cfg, batch_size=16, concurrency=0,
+                                               sampling_params=BATCH_SAMPLING))
+    proc(data.from_items([{"prompt": "warm up " * 12}])).take_all()  # builds the engine
     eng = batch._get_engine(cfg)
     try:
         stats0 = eng.get_stats()
         rmsnorm.launches = 0  # counts from here on are the path's
         t0 = time.perf_counter()
-        blocks = list(proc([{"prompt": prompts[:16]}, {"prompt": prompts[16:]}]))
+        out_ds = proc(data.from_items([{"prompt": p, "row": i} for i, p in enumerate(prompts)],
+                                      parallelism=2)).materialize()
         wall = time.perf_counter() - t0
         launches = rmsnorm.launches
         delta = _step_delta(stats0, eng.get_stats())
-        texts = [t for b in blocks for t in b["generated_text"]]
-        want = [eng.generate(p, sampling_params=SamplingParams(**sampling)) for p in prompts]
+        blocks = out_ds.get_internal_block_refs()
+        rows = out_ds.take_all()
+        texts = [str(r["generated_text"]) for r in rows]
+        want = [eng.generate(p, sampling_params=SamplingParams(**BATCH_SAMPLING))
+                for p in prompts]
     finally:
         eng.shutdown()
         batch._ENGINE_CACHE.clear()
@@ -1791,23 +1822,25 @@ def phase_batch(torch, card: str) -> dict:
     expected = (n_norms * (delta["decode_steps"] + delta["prefill_final_chunks"])
                 + (n_norms - 1) * delta["prefill_mid_chunks"])
     equal = sum(t == w.text for t, w in zip(texts, want))
+    in_order = [int(r["row"]) for r in rows] == list(range(len(prompts)))
     out = {
         "phase": "batch", "card": card, "model": "llama3.2-3b", "rows": len(prompts),
         "blocks": len(blocks), "block_rows": [len(b["prompt"]) for b in blocks],
         "max_tokens": 32, "wall_s": wall, "rows_per_s": len(prompts) / wall,
         "out_tok_per_s": sum(len(w.token_ids) for w in want) / wall,
-        "texts_equal_engine": equal, "rmsnorm_launches": launches,
+        "texts_equal_engine": equal, "in_order": in_order, "rmsnorm_launches": launches,
         "rmsnorm_launches_expected": expected, **delta,
     }
     emit(out)
     del eng
     gc_collect(torch)
-    if equal != len(prompts) or len(texts) != len(prompts):
-        raise AssertionError(f"batch: {len(prompts) - equal} rows differ from the engine's text")
+    if equal != len(prompts) or len(texts) != len(prompts) or not in_order:
+        raise AssertionError(f"batch: {len(prompts) - equal} rows differ from the engine's text, "
+                             f"or rows out of order")
     if delta["decode_graph_replays"] != delta["decode_steps"] or launches != expected:
         raise AssertionError(f"batch: rmsnorm launches {launches} != {expected}, or a decode step "
                              f"was no graph replay ({delta})")
-    return out
+    return {**out, "texts": texts}
 
 
 def phase_gang_lora(torch, card: str, serve: dict, lora: dict) -> dict:
@@ -2547,6 +2580,61 @@ def phase_tune(torch, card: str) -> dict:
     return out
 
 
+def phase_data(torch, card: str, batch: dict) -> dict:
+    """Data on the port's own processes (ray_tpu_torch.tools.data_bench),
+    through the entry points a user calls:
+
+    (a) build_llm_processor(ProcessorConfig(..., batch_size=16,
+    concurrency=2)) over data.from_items(the batch phase's 32 prompts,
+    parallelism=2): llama3.2-3b at full width and depth (seeded bf16
+    weights, the fused RMSNorm, the batch phase's engine), greedy, 32
+    tokens, on two actor processes that each lease half of the card and
+    build one engine. Limits: every row's text equal to the batch phase's
+    text for that prompt, in input order (the same blocks of 16, so the
+    decode GEMMs have the same M); in each actor every decode step a graph
+    replay and the RMSNorm launches since its engine was built, counted in
+    its own process, equal to what its engine's counters give; two
+    half-card leases while the stage runs, none after. Reported: rows/s,
+    output tok/s, each actor's start-up, engine build and peak memory.
+    (b) TorchTrainer with one rank running the example loop at the bench
+    widths cut to ELASTIC_DEPTH layers, datasets={"train": a port Dataset
+    of 12 seeded token rows}, read through get_dataset_shard and
+    iter_device_batches: each of its 3 steps' losses equal to the same
+    steps run in this process on the same rows; attention launches 2L / L /
+    L a step in the rank."""
+    from ray_tpu_torch.tools import data_bench as db
+
+    if db.DEPTH != ELASTIC_DEPTH:
+        raise AssertionError(f"data: data_bench's depth {db.DEPTH} != {ELASTIC_DEPTH}")
+    cfg = _serve_config({}, enable_prefix_caching=False)
+    if db.card_llm_config() != cfg:
+        raise AssertionError("data: data_bench's engine is not the batch phase's")
+    gc_collect(torch)  # the parent holds no model while the actors run
+    parts = {"batch_actors": db.batch_actors(cfg, _batch_prompts(), BATCH_SAMPLING,
+                                             batch["texts"]),
+             "train_ingest": db.train_ingest("cuda")}
+    for name, part in parts.items():
+        emit({"phase": "data", "card": card, **part})
+    failed = {name: p["failed_checks"] for name, p in parts.items() if not p["ok"]}
+    if failed:
+        raise AssertionError(f"data: {failed}")
+    actors, ingest = parts["batch_actors"], parts["train_ingest"]
+    out = {"phase": "data", "card": card, "model": "llama3.2-3b",
+           "rows_per_s": actors["rows_per_s"], "out_tok_per_s": actors["out_tok_per_s"],
+           "rows_per_s_after_build": actors["rows_per_s_after_build"],
+           "out_tok_per_s_after_build": actors["out_tok_per_s_after_build"],
+           "actor_startup_s": [a["startup_s"] for a in actors["actors"]],
+           "engine_build_s": [a["engine_build_s"] for a in actors["actors"]],
+           "actor_peak_memory_gb": [a["peak_memory_gb"] for a in actors["actors"]],
+           "texts_equal_batch_phase": actors["texts_equal"],
+           "ingest_layers": ingest["layers"], "ingest_losses_equal": ingest["losses_equal"],
+           "ingest_rank_startup_s": ingest["rank_startup_s"], "ingest_step_ms": ingest["step_ms"],
+           "ingest_fit_s": ingest["fit_s"],
+           "launches": {**actors["launches"], **ingest["launches"]}}
+    emit(out)
+    return out
+
+
 def emit_holders(phase: str) -> None:
     """The card ledger's live leases after a phase that spawns processes:
     a rank or actor that outlived its phase shows here, under its pid."""
@@ -2581,7 +2669,7 @@ def main() -> int:
 
     timings = {}
 
-    spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "parallel",
+    spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "data", "parallel",
                 "rllib_remote"}
 
     def timed_phase(name, fn):
@@ -2616,6 +2704,7 @@ def main() -> int:
     train_serve = timed_phase("train_serve", lambda torch, card: phase_train_serve(torch, card, train))
     elastic = timed_phase("elastic", phase_elastic)
     tune = timed_phase("tune", phase_tune)
+    data = timed_phase("data", lambda torch, card: phase_data(torch, card, batch))
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
@@ -2665,6 +2754,8 @@ def main() -> int:
                              "lora_serve": lora_serve["rmsnorm_launches"],
                              "disagg": disagg["rmsnorm_launches"],
                              "batch": batch["rmsnorm_launches"],
+                             # the data phase's two actor processes, their own counters
+                             "data": data["launches"]["rmsnorm"],
                              # the gang's rank process, its own counters
                              "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],
@@ -2698,6 +2789,8 @@ def main() -> int:
                              # the tune phase's trial processes and nested
                              # rank (ELASTIC_DEPTH layers), their own counters
                              "tune": tune["launches"][name],
+                             # the data phase's ingest rank (ELASTIC_DEPTH layers, 3 steps)
+                             "data": data["launches"][name],
                              # the sweep's first step on each mesh, counted in the rank
                              "parallel": parallel["launches"][key],
                              "rllib": rllib["launches"][name],

@@ -1,10 +1,18 @@
-"""Device-resident torch batches: the counterpart of
-``ray_tpu/data/iterator.py:DataIterator.iter_jax_batches`` (:74).
+"""Batched consumption: ``DataIterator`` (the port's counterpart of
+``ray_tpu/data/iterator.py:21-181``) and device-resident torch batches.
+
+``DataIterator`` re-chunks a dataset's blocks into exact batch sizes
+(``iter_batches``, ``iter_rows``, ``materialize_blocks``). Where the JAX
+package has ``iter_jax_batches`` (:74), the port has ``iter_device_batches``
+and ``iter_torch_batches``, both through ``iter_device_batches(source,
+...)``. A ``DataIterator`` over a materialized shard pickles with its
+blocks, so ``Dataset.streaming_split``'s iterators go to Train's rank
+processes.
 
 ``iter_device_batches(source, ...)`` reads any object with
-``iter_batches(batch_size=, batch_format="numpy", drop_last=)`` (a ray_tpu
-Dataset or DataIterator among them: duck typed, the port imports nothing
-of ray_tpu) and yields each batch as tensors on the rank's device:
+``iter_batches(batch_size=, batch_format="numpy", drop_last=)`` (a
+``DataIterator`` or ``Dataset`` of the port, or any other with that
+method: duck typed) and yields each batch as tensors on the rank's device:
 
 - each array is copied from a pinned host buffer with
   ``non_blocking=True``, and ``prefetch`` batches are in flight ahead of
@@ -36,8 +44,83 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.data.block import TENSOR_COLUMN, Block, BlockAccessor
 
-TENSOR_COLUMN = "data"  # the JAX package's column name of single-tensor datasets
+
+class DataIterator:
+    """Iterates a dataset's blocks re-chunked into exact batch sizes.
+    ``blocks_factory``: () -> an iterator of blocks (or futures of blocks),
+    restartable for epochs; a dataset's bound ``_execute`` pickles with the
+    dataset."""
+
+    def __init__(self, blocks_factory, owner_repr: str = "dataset"):
+        self._factory = blocks_factory
+        self._owner_repr = owner_repr
+
+    def _iter_blocks(self) -> Iterator[Block]:
+        from ray_tpu_torch.data.execution import _resolve
+
+        for item in self._factory():
+            yield _resolve(item)
+
+    def iter_batches(
+        self,
+        *,
+        batch_size: Optional[int] = 256,
+        batch_format: Optional[str] = "numpy",
+        drop_last: bool = False,
+        local_shuffle_buffer_size: Optional[int] = None,
+        local_shuffle_seed: Optional[int] = None,
+    ) -> Iterator[Any]:
+        carry: Optional[Block] = None
+        rng = (
+            np.random.default_rng(local_shuffle_seed)
+            if local_shuffle_buffer_size
+            else None
+        )
+        for block in self._iter_blocks():
+            block = BlockAccessor.normalize(block)
+            if not BlockAccessor(block).num_rows():
+                continue
+            if rng is not None:
+                perm = rng.permutation(BlockAccessor(block).num_rows())
+                block = BlockAccessor(block).take_indices(perm)
+            carry = (
+                block if carry is None else BlockAccessor.concat([carry, block])
+            )
+            if batch_size is None:
+                yield BlockAccessor(carry).to_batch(batch_format)
+                carry = None
+                continue
+            while carry is not None and BlockAccessor(carry).num_rows() >= batch_size:
+                acc = BlockAccessor(carry)
+                yield BlockAccessor(acc.slice(0, batch_size)).to_batch(batch_format)
+                rest = acc.slice(batch_size, acc.num_rows())
+                carry = rest if BlockAccessor(rest).num_rows() else None
+        if carry is not None and BlockAccessor(carry).num_rows() and not drop_last:
+            yield BlockAccessor(carry).to_batch(batch_format)
+
+    def iter_rows(self) -> Iterator[dict]:
+        for block in self._iter_blocks():
+            yield from BlockAccessor.for_block(block).iter_rows()
+
+    def iter_device_batches(self, **kwargs) -> Iterator[Any]:
+        """``iter_device_batches(self, **kwargs)``: batches as tensors on the
+        card (or the ``device`` named), drop_last True by default."""
+        return iter_device_batches(self, **kwargs)
+
+    def iter_torch_batches(self, *, batch_size: Optional[int] = 256, drop_last: bool = False,
+                           **kwargs) -> Iterator[Any]:
+        """The reference's ``iter_torch_batches``: ``iter_device_batches``
+        with its drop_last default (False); on the card unless ``device``
+        names another."""
+        return iter_device_batches(self, batch_size=batch_size, drop_last=drop_last, **kwargs)
+
+    def materialize_blocks(self) -> list[Block]:
+        return list(self._iter_blocks())
+
+    def __repr__(self):
+        return f"DataIterator({self._owner_repr})"
 
 
 def iter_device_batches(

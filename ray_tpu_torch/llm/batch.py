@@ -1,35 +1,51 @@
-"""Offline batch inference: the port's counterpart of ``ray_tpu/llm/batch.py``.
+"""Offline batch inference over the port's Dataset: the port's counterpart of
+``ray_tpu/llm/batch.py``.
 
-``build_llm_processor(config)`` returns ``apply``: an iterable of
-column-dict blocks in, blocks out, each with the generated text of every
-row under ``output_column``. The engine is built once per process and key
-(``_get_engine``) and every prompt of a block is submitted to it at once,
-so a block is one continuously batched run. A tensor- or
-sequence-parallel config gets its gang through ``TorchEngine``.
+``build_llm_processor(config)`` returns ``apply(ds) -> Dataset``: the rows
+of ``ds`` with the generated text of each under ``output_column``
+(reference: ``python/ray/llm/_internal/batch/processor/``). The inference
+stage is ``ds.map_batches(infer_block, batch_size=, batch_format="dict")``
+over blocks of ``ray_tpu_torch.data``, and every prompt of a batch is
+submitted to the engine at once, so a batch is one continuously batched
+run:
 
-The port has no Dataset runtime and imports none: the reference's
-``map_batches`` / ``ActorPoolStrategy`` wiring (``:88-104``) stays out.
-The block function, ``infer_block(config, batch)``, is public, so a Dataset
-of any runtime can map it over its blocks (``functools.partial`` binds the
-config).
+- ``concurrency > 0``: the stage runs on ``ActorPoolStrategy(size=
+  concurrency)``; each actor process builds one engine, on the card
+  leasing 1/concurrency of it from the host's card ledger (with
+  ``device="cpu"`` the actors lease nothing and run on the CPU);
+- ``concurrency == 0``: stateless task stages on the driver's threads with
+  the per-process engine cache (``_get_engine``). Several threads then
+  submit into one engine: its ``submit`` is a queue put and its scheduler
+  batches what arrives, and the cache builds under a lock, so the threads
+  share one engine.
+
+The UDF is ``functools.partial(infer_block, config)``: it travels to the
+actors by reference. A tensor- or sequence-parallel config is a gang of
+rank processes (``TorchEngine`` gives a ``GangEngine``), which an actor
+process cannot spawn: it runs with ``concurrency=0``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, Iterator, Optional
+import functools
+import threading
+import time
+from typing import Callable, Optional
 
 import numpy as np
 
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 
 _ENGINE_CACHE: dict = {}
+# each cached engine's build: its seconds, and the kernel launch counts of
+# this process when it was done (the capture's warm-up steps ran kernels)
+_ENGINE_BUILT: dict = {}
+_ENGINE_LOCK = threading.Lock()
 
 
-def _get_engine(config: LLMConfig, device: Optional[str] = None):
-    """Per-process engine cache, keyed as the reference keys it (``:22-32``)
-    and by device: map tasks that reuse a process reuse its engine."""
-    key = (
+def _engine_key(config: LLMConfig, device: Optional[str]) -> tuple:
+    return (
         config.model.model_id,
         config.model.checkpoint_path,
         config.model.tokenizer,
@@ -41,12 +57,24 @@ def _get_engine(config: LLMConfig, device: Optional[str] = None):
         config.engine.sequence_parallel_degree,
         device,
     )
-    eng = _ENGINE_CACHE.get(key)
-    if eng is None:
-        from ray_tpu_torch.llm.engine import TorchEngine
 
-        eng = TorchEngine(config, device=device)
-        _ENGINE_CACHE[key] = eng
+
+def _get_engine(config: LLMConfig, device: Optional[str] = None):
+    """Per-process engine cache, keyed as the reference keys it (``:22-32``)
+    and by device: map tasks that reuse a process reuse its engine. Built
+    under a lock: the driver's task threads share one engine."""
+    key = _engine_key(config, device)
+    with _ENGINE_LOCK:
+        eng = _ENGINE_CACHE.get(key)
+        if eng is None:
+            from ray_tpu_torch.llm.engine import TorchEngine
+            from ray_tpu_torch.ops import launch_counts
+
+            t0 = time.perf_counter()
+            eng = TorchEngine(config, device=device)
+            _ENGINE_BUILT[key] = {"seconds": time.perf_counter() - t0,
+                                  "launches": launch_counts()}
+            _ENGINE_CACHE[key] = eng
     return eng
 
 
@@ -57,9 +85,12 @@ class ProcessorConfig:
     prompt_column: str = "prompt"
     output_column: str = "generated_text"
     sampling_params: Optional[dict] = None
-    # where the engines run: None is the card, "cpu" the CPU (the
-    # reference's ``concurrency``, its actor pool's size, has no runtime to
-    # size here)
+    # Engine replicas: >0 runs the inference stage on a warm actor pool of
+    # this size (each actor holds ONE engine for its lifetime, on
+    # 1/concurrency of the card); 0 = stateless tasks with the per-process
+    # engine cache.
+    concurrency: int = 1
+    # where the engines run: None is the card, "cpu" the CPU
     device: Optional[str] = None
 
 
@@ -69,7 +100,7 @@ def _sampling(d: dict) -> SamplingParams:
 
 
 def infer_block(config: ProcessorConfig, batch: dict) -> dict:
-    """One block (``ray_tpu/llm/batch.py:68-86``): every prompt submitted to
+    """One batch (``ray_tpu/llm/batch.py:68-86``): every prompt submitted to
     the process's engine at once, each waited for (a dead decode loop
     surfaces as the request's error, raised here), the texts added as an
     object array under ``output_column``."""
@@ -92,25 +123,33 @@ def build_llm_processor(
     config: ProcessorConfig,
     preprocess: Optional[Callable[[dict], dict]] = None,
     postprocess: Optional[Callable[[dict], dict]] = None,
-) -> Callable[[Iterable[dict]], Iterator[dict]]:
-    """Returns ``apply(blocks)``: for each column-dict block, in order,
-    ``preprocess`` on each row, then the rows in slices of
-    ``batch_size`` through ``infer_block``, then ``postprocess`` on each
-    row; yields the output blocks."""
+) -> Callable:
+    """Returns fn(Dataset) -> Dataset adding generated text per row:
+    ``preprocess`` on each row, the inference stage, ``postprocess`` on
+    each row."""
+    engine = config.llm_config.engine
+    if config.concurrency > 0 and (engine.tensor_parallel_degree > 1
+                                   or engine.sequence_parallel_degree > 1):
+        raise ValueError("a tensor- or sequence-parallel engine is a gang of rank processes, "
+                         "which an actor process cannot spawn: use concurrency=0")
 
-    def rows(block: dict, fn) -> dict:
-        n = len(next(iter(block.values()))) if block else 0
-        out = [fn({k: v[i] for k, v in block.items()}) for i in range(n)]
-        return {k: [r[k] for r in out] for k in (out[0] if out else block)}
+    def apply(ds):
+        from ray_tpu_torch.data import ActorPoolStrategy
 
-    def apply(blocks: Iterable[dict]) -> Iterator[dict]:
-        for block in blocks:
-            if preprocess is not None:
-                block = rows(block, preprocess)
-            n = len(block[config.prompt_column])
-            for i in range(0, n, config.batch_size):
-                part = infer_block(config, {k: v[i : i + config.batch_size]
-                                            for k, v in block.items()})
-                yield part if postprocess is None else rows(part, postprocess)
+        if preprocess is not None:
+            ds = ds.map(preprocess)
+        compute = None
+        if config.concurrency > 0:
+            share = {} if config.device == "cpu" else {"GPU": 1.0 / config.concurrency}
+            compute = ActorPoolStrategy(size=config.concurrency, resources=share)
+        ds = ds.map_batches(
+            functools.partial(infer_block, config),
+            batch_size=config.batch_size,
+            batch_format="dict",
+            compute=compute,
+        )
+        if postprocess is not None:
+            ds = ds.map(postprocess)
+        return ds
 
     return apply

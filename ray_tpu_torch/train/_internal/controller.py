@@ -273,11 +273,19 @@ class TrainController:
 
     def _dataset_shards(self, n: int) -> list[dict]:
         """Each rank's datasets (the reference's DataConfig,
-        ``train/_internal/data_config.py``): ``split(n)`` where the
-        dataset has one, else the iterable replicated."""
+        ``train/_internal/data_config.py``; ``_attach_datasets`` in the JAX
+        package's controller): ``streaming_split(n, equal=True)`` where the
+        dataset has one (a port ``Dataset``: iterators over disjoint
+        materialized shards, which pickle into the ranks), else
+        ``split(n)``, else the iterable replicated."""
         shards: list[dict] = [{} for _ in range(n)]
         for name, ds in self.datasets.items():
-            parts = ds.split(n) if hasattr(ds, "split") else [ds] * n
+            if hasattr(ds, "streaming_split"):
+                parts = ds.streaming_split(n, equal=True)
+            elif hasattr(ds, "split"):
+                parts = ds.split(n)
+            else:
+                parts = [ds] * n
             for rank, part in enumerate(parts):
                 shards[rank][name] = part
         return shards

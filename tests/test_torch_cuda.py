@@ -11,6 +11,7 @@ on a machine that has only PyTorch:
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -949,3 +950,70 @@ def test_elastic_fit_one_rank_on_card(tmp_path):
     assert [m["step"] for m in result.metrics_history] == list(range(1, 41))
     assert (c.num_resizes, c.failure_policy.failures) == (0, 0)
     assert default_ledger().holders() == []
+
+
+# ---- the Data layer on the card ---------------------------------------------------
+
+
+class _DeviceRows:
+    """A UDF that reports, for each row, the card its actor's process sees
+    (an actor stage's UDF: module level, so the actors import it by name)."""
+
+    def __call__(self, batch):
+        import os
+
+        n = len(batch["id"])
+        name = torch.cuda.get_device_name(0) if torch.cuda.is_available() else ""
+        return {"id": batch["id"], "cuda": np.full(n, torch.cuda.is_available()),
+                "pid": np.full(n, os.getpid()),
+                "visible": np.full(n, os.environ.get("CUDA_VISIBLE_DEVICES", ""), dtype=object),
+                "device": np.full(n, name, dtype=object),
+                "on_card": np.full(n, torch.ones(1, device="cuda").device.type == "cuda")}
+
+
+def test_actor_stage_with_a_gpu_share_gets_its_card_on_card():
+    """``ActorPoolStrategy(size=2, resources={"GPU": 0.5})``: two actors,
+    each leasing half of one card from the host's ledger while the stage
+    runs, each seeing that card as its CUDA device; rows in input order; no
+    lease after."""
+    _need_card()
+    import ray_tpu_torch.data as td
+    from ray_tpu_torch._private.cards import default_ledger
+    from ray_tpu_torch.data.execution import StreamingExecutor, _resolve
+
+    ds = td.range(16, parallelism=4).map_batches(
+        _DeviceRows, batch_size=4, compute=td.ActorPoolStrategy(size=2, resources={"GPU": 0.5}))
+    blocks, held = [], []
+    for item in StreamingExecutor().execute(ds._plan):
+        blocks.append(_resolve(item))
+        held.append(default_ledger().holders())
+    rows = [{k: b[k][i] for k in b} for b in blocks for i in range(len(b["id"]))]
+    assert [int(r["id"]) for r in rows] == list(range(16))
+    assert all(r["cuda"] and r["on_card"] for r in rows)
+    assert {r["device"] for r in rows} == {torch.cuda.get_device_name(0)}
+    pids = {int(r["pid"]) for r in rows}
+    shares = [h for h in max(held, key=len) if h.pid in pids]
+    assert len(pids) == 2 and len(shares) == 2
+    assert all(list(h.gpu.values()) == [0.5] for h in shares)
+    assert {r["visible"] for r in rows} == {c for h in shares for c in h.gpu}
+    assert default_ledger().holders() == []
+
+
+def test_iter_torch_batches_on_card():
+    """``Dataset.iter_torch_batches`` puts each batch on the card (the
+    default device), the short last batch kept (the reference's
+    drop_last=False), values and dtypes equal to the host batches."""
+    _need_card()
+    import ray_tpu_torch.data as td
+
+    rng = np.random.default_rng(0)
+    items = [{"tokens": rng.integers(0, 100, 9).astype(np.int32), "w": float(i)}
+             for i in range(10)]
+    ds = td.from_items(items, parallelism=3)
+    got = list(ds.iter_torch_batches(batch_size=4, dtypes={"w": np.float32}))
+    want = list(ds.iter_batches(batch_size=4))
+    assert [b["tokens"].shape[0] for b in got] == [4, 4, 2]
+    for b, w in zip(got, want):
+        assert b["tokens"].device.type == "cuda" and b["w"].dtype == torch.float32
+        np.testing.assert_array_equal(b["tokens"].cpu().numpy(), w["tokens"])
+        np.testing.assert_array_equal(b["w"].cpu().numpy(), w["w"].astype(np.float32))

@@ -290,6 +290,8 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert REPO / "ray_tpu_torch" / "tune" / "tuner.py" in files
     assert REPO / "ray_tpu_torch" / "tune" / "schedulers" / "pb2.py" in files
     assert REPO / "ray_tpu_torch" / "tune" / "search" / "gp_search.py" in files
+    assert REPO / "ray_tpu_torch" / "data" / "execution.py" in files
+    assert REPO / "ray_tpu_torch" / "data" / "dataset.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -9,10 +9,12 @@ numbers in the two packages), so the greedy texts must be equal:
   block function mapped over a ``ray_tpu.data`` Dataset with
   ``map_batches``, the texts equal to JAX's ``build_llm_processor`` over
   the same rows;
-- ``apply`` over a list of blocks, with ``preprocess`` and ``postprocess``;
+- ``apply`` over a port Dataset (``ray_tpu_torch.data``) in task stages
+  (``concurrency=0``), with ``preprocess`` and ``postprocess``;
 - a tp2 config: ``apply`` runs on the gang of 2 gloo ranks that
-  ``TorchEngine`` gives it, the texts equal to JAX's ``build_llm_processor``
-  over a ``JaxEngine`` on a 2-device tp mesh;
+  ``TorchEngine`` gives it (task stages: an actor cannot spawn the gang),
+  the texts equal to JAX's ``build_llm_processor`` over a ``JaxEngine`` on
+  a 2-device tp mesh;
 - the per-process engine cache: one engine per key.
 """
 
@@ -99,20 +101,22 @@ def test_block_function_over_a_ray_tpu_dataset_equals_jax(ray_start_thread, chec
 
 
 def test_apply_over_blocks_with_pre_and_postprocess(checkpoint):
+    import ray_tpu_torch.data as td
     from ray_tpu_torch.llm import (ProcessorConfig, SamplingParams, TorchEngine,
                                    build_llm_processor)
 
     cfg = _config(checkpoint)
     proc = build_llm_processor(
-        ProcessorConfig(llm_config=cfg, batch_size=3, sampling_params=SAMPLING, device="cpu"),
+        ProcessorConfig(llm_config=cfg, batch_size=3, sampling_params=SAMPLING, concurrency=0,
+                        device="cpu"),
         preprocess=lambda row: {**row, "prompt": row["prompt"].upper()},
         postprocess=lambda row: {**row, "n": len(row["generated_text"])},
     )
-    blocks = [{"prompt": ["a", "bb", "ccc", "dddd"], "id": [0, 1, 2, 3]},
-              {"prompt": ["e"], "id": [4]}]
-    out = list(proc(blocks))
-    assert [len(b["prompt"]) for b in out] == [3, 1, 1]  # slices of batch_size per block
-    rows = [{k: b[k][i] for k in b} for b in out for i in range(len(b["prompt"]))]
+    items = [{"prompt": p, "id": i} for i, p in enumerate(["a", "bb", "ccc", "dddd", "e"])]
+    out = proc(td.from_items(items, parallelism=2)).materialize()
+    # blocks of 3 and 2 rows, each one batch of at most batch_size
+    assert [len(b["prompt"]) for b in out.get_internal_block_refs()] == [3, 2]
+    rows = out.take_all()
     assert [r["id"] for r in rows] == [0, 1, 2, 3, 4]
     eng = TorchEngine(cfg, device="cpu")
     try:
@@ -134,18 +138,21 @@ def test_tp2_processor_on_a_gang_equals_jax_on_a_2_device_mesh(ray_start_thread,
     from ray_tpu.llm import build_llm_processor as jbuild
     from ray_tpu.llm.engine import JaxEngine
     from ray_tpu.parallel.mesh import MeshSpec, build_mesh
+    import ray_tpu_torch.data as td
     from ray_tpu_torch.llm import ProcessorConfig, build_llm_processor
     from ray_tpu_torch.llm.batch import _get_engine
     from ray_tpu_torch.llm.gang import GangEngine
 
     cfg = _config(checkpoint, tensor_parallel_degree=2)
     prompts = [f"p{i}" for i in range(6)]
-    proc = build_llm_processor(ProcessorConfig(llm_config=cfg, batch_size=4,
+    with pytest.raises(ValueError, match="concurrency=0"):  # no gang inside an actor
+        build_llm_processor(ProcessorConfig(llm_config=cfg, device="cpu"))
+    proc = build_llm_processor(ProcessorConfig(llm_config=cfg, batch_size=4, concurrency=0,
                                                sampling_params=SAMPLING, device="cpu"))
-    out = list(proc([{"prompt": prompts}]))
+    rows = proc(td.from_items([{"prompt": p} for p in prompts], parallelism=1)).take_all()
     assert isinstance(_get_engine(cfg, "cpu"), GangEngine)
-    assert [len(b["prompt"]) for b in out] == [4, 2]
-    got = {p: t for b in out for p, t in zip(b["prompt"], b["generated_text"])}
+    assert [r["prompt"] for r in rows] == prompts
+    got = {r["prompt"]: r["generated_text"] for r in rows}
     # JAX's processor over one engine on a 2-device tp mesh (its own cache
     # would build the mesh over every virtual device)
     jeng = JaxEngine(_jax_config(cfg), mesh=build_mesh(MeshSpec(tp=2), devices=jax.devices()[:2]))
