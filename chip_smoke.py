@@ -5,7 +5,8 @@ and decode disaggregated, and offline batch inference), its
 training path (dense and MoE, remat "full" and "dots"), its int8 weight
 path, the entry() twin, the Train layer's train -> checkpoint -> serve
 path, its elastic resizing on the host's card ledger and Tune's trials on
-it, Data's actor pools and Train ingest, and the RL stack
+it, Data's actor pools and Train ingest, Serve's runtime (replica
+processes, handles, the HTTP proxy, autoscaling), and the RL stack
 (ray_tpu_torch.rllib), its runner and learner processes included.
 
 Run from the repository root on a machine with one CUDA card:
@@ -167,6 +168,21 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 get_dataset_shard and iter_device_batches: its 3 losses
                 equal to the same steps in this process, attention
                 launches 2L / L / L a step in the rank.
+ 15d. serve_app — Serve's runtime on the port's own processes
+                (tools/serve_bench.py): serve.run of an ingress deployment (CPU)
+                whose handle forwards to an LLMServer deployment on the serve
+                phase's config, each replica a process leasing half of the card,
+                autoscaled 1..2; an echo deployment; the HTTP proxy. 16
+                concurrent greedy HTTP completions x 32 tokens drive the upscale
+                to 2 replicas; handle calls and 2 SSE streams reach both; the
+                downscale to 1; a replica killed and replaced. Every text equal
+                to the serve phase's, every decode step a graph replay, RMSNorm
+                launches in each replica equal to its engine's count (read there
+                before the controller stops it), targets 1 -> 2 -> 1, two
+                half-card leases at the peak and none after; tok/s through the
+                proxy, HTTP p50/p99, SSE TTFT, the echo round trip by handle and
+                by HTTP, each replica's start-up, engine build and peak memory,
+                the upscale's and the replacement's seconds.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -2635,6 +2651,43 @@ def phase_data(torch, card: str, batch: dict) -> dict:
     return out
 
 
+def phase_serve_app(torch, card: str, serve: dict) -> dict:
+    """Serve's runtime on the port's own processes
+    (ray_tpu_torch.tools.serve_bench.serve_app), through the entry points a
+    user calls: serve.run of an ingress deployment (a CPU process, leasing
+    nothing) whose handle forwards each request's JSON body to an LLMServer
+    deployment on the serve phase's config (llama3.2-3b at full width and
+    depth, seeded bf16 weights, the fused RMSNorm, 16 slots x 1024), each of
+    its replicas a process leasing {"GPU": 0.5} of the card, autoscaled
+    between 1 and 2; an echo deployment on the CPU; start_proxy(port=0).
+    Traffic: a warm-up; 20 echo round trips through the handle and 20 over
+    HTTP; 16 concurrent greedy HTTP completions of 32 tokens (the upscale to
+    2 replicas); calls through the llm handle until the second replica has
+    served one (at least 4); 2 SSE streams; the downscale to 1; the
+    remaining replica's process killed, its replacement ready, one more
+    request. Limits: every text equal to the serve phase's greedy text for
+    its prompt (its first 32 tokens; an SSE stream's chunks joined equal to
+    the per-token texts); in each replica every decode step a graph replay
+    and the RMSNorm launches, counted in its own process before the
+    controller stops it, equal to what its engine's counters give; targets 1
+    -> 2 -> 1; two leases of half of card 0 at the peak and none after
+    serve.shutdown()."""
+    from ray_tpu_torch.llm.tokenizer import get_tokenizer
+    from ray_tpu_torch.tools import serve_bench as sb
+
+    cfg = _serve_config({})
+    if sb.card_llm_config() != cfg or sb.serve_prompts() != _serve_prompts():
+        raise AssertionError("serve_app: serve_bench's engine or prompts are not the serve phase's")
+    want = sb.expected_texts(serve["tokens_by_prompt"], _serve_prompts(), get_tokenizer("byte"))
+    gc_collect(torch)  # the parent holds no model while the replicas run
+    out = {"phase": "serve_app", "card": card, "model": "llama3.2-3b",
+           **sb.serve_app(cfg, _serve_prompts(), want)}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"serve_app: {out['failed_checks']}")
+    return out
+
+
 def emit_holders(phase: str) -> None:
     """The card ledger's live leases after a phase that spawns processes:
     a rank or actor that outlived its phase shows here, under its pid."""
@@ -2669,8 +2722,8 @@ def main() -> int:
 
     timings = {}
 
-    spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "data", "parallel",
-                "rllib_remote"}
+    spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "data", "serve_app",
+                "parallel", "rllib_remote"}
 
     def timed_phase(name, fn):
         t = time.perf_counter()
@@ -2705,6 +2758,7 @@ def main() -> int:
     elastic = timed_phase("elastic", phase_elastic)
     tune = timed_phase("tune", phase_tune)
     data = timed_phase("data", lambda torch, card: phase_data(torch, card, batch))
+    serve_app = timed_phase("serve_app", lambda torch, card: phase_serve_app(torch, card, serve))
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
@@ -2756,6 +2810,8 @@ def main() -> int:
                              "batch": batch["rmsnorm_launches"],
                              # the data phase's two actor processes, their own counters
                              "data": data["launches"]["rmsnorm"],
+                             # the serve_app phase's LLMServer replicas, their own counters
+                             "serve_app": serve_app["launches"]["rmsnorm"],
                              # the gang's rank process, its own counters
                              "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],

@@ -1,14 +1,18 @@
 """A process handle: one spawned process hosting one object.
 
 The port's stand-in for what ``ray_tpu.remote(cls)`` gives the JAX
-package's RLlib (an actor, ``ray_tpu/rllib/env/env_runner.py:332-335``).
-RLlib's remote env runners, remote learners and SAC's runners run on it.
+package's RLlib, Data and Serve (an actor,
+``ray_tpu/rllib/env/env_runner.py:332-335``). RLlib's remote env runners
+and learners, SAC's runners, Data's actor pools and Serve's replicas run
+on it.
 
     actor = ProcessActor(SingleAgentEnvRunner, ("CartPole-v1", spec), {"seed": 1})
     h = actor.call("sample")          # a PendingResult, at once
     out = get(h)                      # the method's return value
     n = get(actor.call(launch_counts))  # a module-level function, run there
     ready, rest = wait([h1, h2], num_returns=1, timeout=60.0)
+    for chunk in actor.call_stream("tokens", 8):  # a generator method, chunk by chunk
+        ...
     actor.kill()
 
 - *Processes.* The ``spawn`` context, one process per actor, standing
@@ -23,34 +27,47 @@ RLlib's remote env runners, remote learners and SAC's runners run on it.
   life (``_private/spawn_env.py``, shared with the Train layer's ranks):
   a process that is killed, however, leaves no lease behind.
 - *Calls* go over a pipe by method name (or as a module-level function,
-  by reference, run in the process on its arguments alone) and run in the
+  by reference, run in the process on its arguments alone). With
+  ``max_concurrency=1`` (the default) they run one at a time, in the
   order they were sent: a ``set_weights`` lands before the ``sample`` sent
-  after it. A reader thread in the child keeps taking calls while a method
-  runs, so a large call never waits on a large reply.
+  after it. With ``max_concurrency=n`` a pool of n threads in the child
+  runs them at once, in no promised order (the JAX package's threaded
+  actors; Serve's replicas take ``max_ongoing_requests + 2``, so that
+  ``@serve.batch`` sees calls together and a health check never waits
+  behind a full replica). A reader thread in the child keeps taking calls
+  while methods run, so a large call never waits on a large reply.
+- *Streams.* ``call_stream`` runs a generator method and sends each chunk
+  under the call's id as it is produced, then an end marker or the error.
+  The producer runs at most ``STREAM_WINDOW`` chunks ahead of the consumer
+  (the consumer acknowledges what it took); ``cancel`` (or collecting the
+  ``StreamResult`` before its end) closes the producer's generator.
+- *Replies.* One reader thread in the parent, for each actor, reads its
+  reply pipe and routes each reply to its call's ``PendingResult`` or
+  ``StreamResult`` by call id; ``get`` and ``wait`` only wait on results,
+  so any number of threads may call, get and wait on one actor at once.
 - *Failures.* A method that raises comes back as ``RemoteError`` with the
   child's traceback. A process that dies turns each of its pending results
-  into ``ActorDiedError`` as soon as a ``get`` or ``wait`` sees its pipe
-  close or its sentinel fire (the JAX package waits out its ``get``
-  timeout). Construction is call 0 (``actor.ready``); if it raises, the
-  process sends the error and exits.
+  and open streams into ``ActorDiedError`` as soon as its reply pipe
+  closes (the JAX package waits out its ``get`` timeout). Construction is
+  call 0 (``actor.ready``); if it raises, the process sends the error and
+  exits.
 - *Lifetime.* ``kill()`` terminates, joins with a deadline, then kills. A
   finalizer does the same when the handle is collected or the interpreter
   exits, and the process is a daemon besides: none outlives its owner.
-
-One thread drives a set of actors: ``get`` and ``wait`` read the pipes
-of the actors they wait on.
+  When the parent goes, the child's call pipe closes, and the child exits.
 """
 
 from __future__ import annotations
 
 import multiprocessing
+import os
 import pickle
+import queue
 import threading
 import time
 import traceback
 import weakref
-from multiprocessing.connection import wait as _wait_ready
-from typing import Any, Optional
+from typing import Callable, Optional
 
 from ray_tpu_torch._private.cards import Lease
 from ray_tpu_torch._private.spawn_env import process_env, start_process
@@ -60,6 +77,13 @@ from ray_tpu_torch._private.spawn_env import process_env, start_process
 CALL_TIMEOUT_S = 300.0
 # terminate -> kill, and kill -> reaped
 KILL_GRACE_S = 10.0
+# chunks a stream's producer may run ahead of its consumer (the JAX
+# package's _generator_backpressure_num_objects, ray_tpu/serve/handle.py)
+STREAM_WINDOW = 16
+_ACK_EVERY = STREAM_WINDOW // 2
+
+# every result that completes notifies this; ``wait`` waits on it
+_CHANGED = threading.Condition()
 
 
 class ActorError(RuntimeError):
@@ -94,14 +118,31 @@ def require_picklable(obj, what: str) -> None:
 class PendingResult:
     """One call's result, filled in when its reply arrives."""
 
-    __slots__ = ("actor", "call_id", "method", "done", "_ok", "_value")
+    __slots__ = ("actor", "call_id", "method", "done", "_ok", "_value", "_callbacks")
 
     def __init__(self, actor: "ProcessActor", call_id: int, method: str):
         self.actor, self.call_id, self.method = actor, call_id, method
         self.done, self._ok, self._value = False, False, None
+        self._callbacks: list = []
 
     def _set(self, ok: bool, value) -> None:
-        self.done, self._ok, self._value = True, ok, value
+        with _CHANGED:
+            if self.done:
+                return
+            self.done, self._ok, self._value = True, ok, value
+            callbacks, self._callbacks = self._callbacks, []
+            _CHANGED.notify_all()
+        for fn in callbacks:
+            fn(self)
+
+    def add_done_callback(self, fn: Callable) -> None:
+        """``fn(self)`` once the result is in: at once if it is, else on
+        the thread that fills it in (the actor's reader thread)."""
+        with _CHANGED:
+            if not self.done:
+                self._callbacks.append(fn)
+                return
+        fn(self)
 
     def result(self):
         if not self._ok:
@@ -113,22 +154,146 @@ class PendingResult:
         return f"<PendingResult {self.actor.name}.{self.method} #{self.call_id} {state}>"
 
 
-def _actor_main(blob: bytes, calls, replies, one_thread: bool) -> None:
-    """The child's body: build the object, then run calls in order until
-    the parent closes the call pipe."""
-    import queue
+_END = object()
 
+
+class _StreamSink:
+    """What a stream's reply side fills in: its chunks, then its end. The
+    actor's link holds the sink, not the ``StreamResult``, so a consumer
+    that drops its ``StreamResult`` mid-stream lets it be collected (and
+    the stream cancelled)."""
+
+    def __init__(self, call_id: int, method: str):
+        self.call_id, self.method = call_id, method
+        self.items: queue.SimpleQueue = queue.SimpleQueue()
+        self.done = False  # the end, the error or the death has arrived
+        self.callbacks: list = []
+        self.lock = threading.Lock()
+
+    def _put(self, item) -> None:
+        self.items.put(item)
+
+    def _end(self, error: Optional[BaseException]) -> None:
+        with self.lock:
+            if self.done:
+                return
+            self.done = True
+            callbacks, self.callbacks = self.callbacks, []
+        self.items.put((_END, error))
+        for fn in callbacks:
+            fn(self)
+
+
+class StreamResult:
+    """A generator method's chunks, in order, as they arrive: iterate, or
+    ``next(timeout)``. The end raises ``StopIteration``; the method's error
+    ``RemoteError``; the process's death ``ActorDiedError``."""
+
+    def __init__(self, actor: "ProcessActor", call_id: int, method: str):
+        self.actor, self.call_id, self.method = actor, call_id, method
+        self._sink = _StreamSink(call_id, method)
+        self.finished = False  # the consumer has reached the end
+        self._taken = 0
+
+    @property
+    def done(self) -> bool:
+        """The end, the error or the death has arrived."""
+        return self._sink.done
+
+    def _end(self, error: Optional[BaseException]) -> None:
+        self._sink._end(error)
+
+    def add_done_callback(self, fn: Callable) -> None:
+        """``fn(sink)`` once the stream has ended (however it ended), on the
+        thread that ends it."""
+        sink = self._sink
+        with sink.lock:
+            if not sink.done:
+                sink.callbacks.append(fn)
+                return
+        fn(sink)
+
+    def next(self, timeout: Optional[float] = CALL_TIMEOUT_S):
+        if self.finished:
+            raise StopIteration
+        try:
+            item = self._sink.items.get(timeout=timeout)
+        except queue.Empty:
+            raise TimeoutError(f"{self!r}: no chunk within {timeout:.0f} s") from None
+        if isinstance(item, tuple) and len(item) == 2 and item[0] is _END:
+            self.finished = True
+            if item[1] is not None:
+                raise item[1]
+            raise StopIteration
+        self._taken += 1
+        if self._taken % _ACK_EVERY == 0:
+            self.actor._control(("ack", self.call_id, _ACK_EVERY))
+        return item
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next(timeout=None)
+
+    def cancel(self) -> None:
+        """Stop the producer: the child closes the method's generator and
+        ends the stream; chunks not yet taken are dropped."""
+        if not self.done:
+            self.actor._control(("cancel", self.call_id))
+
+    def __repr__(self):
+        state = "done" if self.done else "open"
+        return f"<StreamResult {self.actor.name}.{self.method} #{self.call_id} {state}>"
+
+
+# -- the child ------------------------------------------------------------------
+
+
+def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: int = 1) -> None:
+    """The child's body: build the object, then run calls until the parent
+    closes the call pipe; one at a time in order, or on a pool of
+    ``max_concurrency`` threads."""
     if one_thread:
         import torch
 
         torch.set_num_threads(1)
     inbox: queue.SimpleQueue = queue.SimpleQueue()
+    send_lock = threading.Lock()
+    streams: dict = {}  # call id -> [credits semaphore, cancelled event]
+    streams_lock = threading.Lock()
+
+    def send(msg) -> None:
+        with send_lock:
+            try:
+                replies.send(msg)
+            except (pickle.PicklingError, AttributeError, TypeError):
+                # the value did not pickle (send pickles before writing)
+                replies.send((msg[0], "err", traceback.format_exc()))
 
     def read():
         try:
             while True:
-                inbox.put(calls.recv_bytes())
+                msg = pickle.loads(calls.recv_bytes())
+                if msg[0] == "ack":
+                    with streams_lock:
+                        s = streams.get(msg[1])
+                    if s is not None:
+                        for _ in range(msg[2]):
+                            s[0].release()
+                elif msg[0] == "cancel":
+                    with streams_lock:
+                        s = streams.get(msg[1])
+                    if s is not None:
+                        s[1].set()
+                        s[0].release()
+                else:
+                    inbox.put(msg)
         except (EOFError, OSError):
+            with streams_lock:  # wake producers waiting for credit
+                for credits, cancelled in streams.values():
+                    cancelled.set()
+                    credits.release()
             inbox.put(None)
 
     threading.Thread(target=read, name="calls", daemon=True).start()
@@ -136,21 +301,59 @@ def _actor_main(blob: bytes, calls, replies, one_thread: bool) -> None:
         cls, args, kwargs = pickle.loads(blob)
         obj = cls(*args, **kwargs)
     except Exception:
-        replies.send((0, False, traceback.format_exc()))
+        replies.send((0, "err", traceback.format_exc()))
         return
-    replies.send((0, True, None))
-    while (msg := inbox.get()) is not None:
-        call_id, method, args, kwargs = pickle.loads(msg)
+    replies.send((0, "ok", None))
+
+    def run(msg) -> None:
+        call_id, method, args, kwargs, stream = msg
         fn = getattr(obj, method) if isinstance(method, str) else method
+        if not stream:
+            try:
+                send((call_id, "ok", fn(*args, **kwargs)))
+            except Exception:
+                send((call_id, "err", traceback.format_exc()))
+            return
+        credits, cancelled = threading.Semaphore(STREAM_WINDOW), threading.Event()
+        with streams_lock:
+            streams[call_id] = (credits, cancelled)
+        gen = None
         try:
-            reply = (call_id, True, fn(*args, **kwargs))
+            gen = iter(fn(*args, **kwargs))
+            while not cancelled.is_set():
+                credits.acquire()
+                if cancelled.is_set():
+                    break
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    break
+                send((call_id, "item", item))
+            close = getattr(gen, "close", None)
+            if close is not None:
+                close()
+            send((call_id, "end", None))
         except Exception:
-            reply = (call_id, False, traceback.format_exc())
-        try:
-            replies.send(reply)
-        except (pickle.PicklingError, AttributeError, TypeError):
-            # the return value did not pickle (send pickles before writing)
-            replies.send((call_id, False, traceback.format_exc()))
+            send((call_id, "err", traceback.format_exc()))
+        finally:
+            with streams_lock:
+                streams.pop(call_id, None)
+
+    if max_concurrency <= 1:
+        while (msg := inbox.get()) is not None:
+            run(msg)
+        return
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_concurrency, thread_name_prefix="actor-call")
+    while (msg := inbox.get()) is not None:
+        pool.submit(run, msg)
+    # the parent closed the call pipe (or went): calls still running are
+    # abandoned, as a killed process's are
+    os._exit(0)
+
+
+# -- the parent -----------------------------------------------------------------
 
 
 def _reap(proc, conns, grace_s: float) -> None:
@@ -165,13 +368,67 @@ def _reap(proc, conns, grace_s: float) -> None:
         c.close()
 
 
+class _Link:
+    """An actor's reply side, which its reader thread drives: the pending
+    calls by id, and why the process is gone once it is. Holds no reference
+    to the ``ProcessActor``, so a dropped handle is still collected."""
+
+    def __init__(self, name: str, proc, replies):
+        self.name, self.proc, self.replies = name, proc, replies
+        self.lock = threading.Lock()
+        self.pending: dict = {}
+        self.dead: Optional[str] = None
+
+    def read_loop(self) -> None:
+        while True:
+            try:
+                call_id, kind, value = self.replies.recv()
+            except (EOFError, OSError):
+                break
+            except Exception:  # a reply that did not unpickle here: it is lost
+                traceback.print_exc()
+                continue
+            with self.lock:
+                h = (self.pending.get(call_id) if kind == "item"
+                     else self.pending.pop(call_id, None))
+            if h is None:
+                continue
+            if kind == "item":
+                h._put(value)
+                continue
+            if kind == "err":
+                value = RemoteError(f"{self.name}.{h.method} raised in process "
+                                    f"{self.proc.pid}:\n{value}")
+            if isinstance(h, _StreamSink):
+                h._end(value if kind == "err" else None)
+            else:
+                h._set(kind == "ok", value)
+        self.proc.join(KILL_GRACE_S)  # the pipe closed: the process is ending
+        self.mark_dead()
+
+    def mark_dead(self, why: Optional[str] = None) -> None:
+        with self.lock:
+            if self.dead is None:
+                self.dead = why or (f"{self.name} (pid {self.proc.pid}) exited with code "
+                                    f"{self.proc.exitcode}")
+            pending, self.pending = list(self.pending.values()), {}
+        for h in pending:
+            err = ActorDiedError(f"{self.dead} before {h.method} returned")
+            if isinstance(h, _StreamSink):
+                h._end(err)
+            else:
+                h._set(False, err)
+
+
 class ProcessActor:
     """``cls(*args, **kwargs)`` in a spawned process of its own; ``lease``
     is the card ledger's lease it holds (its card), or None for a CPU
-    process that holds nothing."""
+    process that holds nothing; ``max_concurrency`` the calls it runs at
+    once (1: one at a time, in order)."""
 
     def __init__(self, cls, args: tuple = (), kwargs: Optional[dict] = None, *,
-                 lease: Optional[Lease] = None, name: Optional[str] = None):
+                 lease: Optional[Lease] = None, name: Optional[str] = None,
+                 max_concurrency: int = 1):
         self.name = name or cls.__name__
         try:
             blob = _dumps((cls, tuple(args), dict(kwargs or {})),
@@ -180,94 +437,107 @@ class ProcessActor:
             calls_r, calls_w = mp.Pipe(duplex=False)
             replies_r, replies_w = mp.Pipe(duplex=False)
             cards = lease.cards if lease is not None else []
-            self._proc = start_process(mp, _actor_main, (blob, calls_r, replies_w, not cards),
-                                       name=self.name, env=process_env(cards, 1), lease=lease,
-                                       daemon=True)
+            self._proc = start_process(
+                mp, _actor_main, (blob, calls_r, replies_w, not cards, max(1, max_concurrency)),
+                name=self.name, env=process_env(cards, 1), lease=lease, daemon=True)
         finally:
             if lease is not None:
                 lease.release()  # a no-op once the child holds it
         calls_r.close()  # the child holds these ends
         replies_w.close()
-        self._calls, self._replies = calls_w, replies_r
+        self._calls = calls_w
+        self._send_lock = threading.Lock()
         self._next_id = 1
-        self._dead: Optional[str] = None
+        self._link = _Link(self.name, self._proc, replies_r)
         self.ready = PendingResult(self, 0, "__init__")
-        self._pending: dict[int, PendingResult] = {0: self.ready}
+        self._link.pending[0] = self.ready
         self._reaper = weakref.finalize(self, _reap, self._proc, (calls_w, replies_r),
                                         KILL_GRACE_S)
+        threading.Thread(target=self._link.read_loop, name=f"replies-{self.name}",
+                         daemon=True).start()
 
     @property
     def pid(self) -> int:
         return self._proc.pid
 
     def is_alive(self) -> bool:
-        return self._dead is None and self._proc.is_alive()
+        return self._link.dead is None and self._proc.is_alive()
 
     def call(self, method, *args, **kwargs) -> PendingResult:
         """Send ``method(*args, **kwargs)``: a method of the hosted object
         by name, or a module-level function, run in the process (sent by
         reference); returns its pending result."""
-        name = method if isinstance(method, str) else method.__name__
-        h = PendingResult(self, self._next_id, name)
-        self._next_id += 1
-        msg = _dumps((h.call_id, method, args, kwargs), f"the arguments of {self.name}.{name}")
-        if self._dead is not None:
-            h._set(False, ActorDiedError(self._dead))
-            return h
-        self._pending[h.call_id] = h
-        try:
-            self._calls.send_bytes(msg)
-        except OSError:
-            self._drain()
-            self._mark_dead()
+        return self._send(PendingResult, method, args, kwargs)
+
+    def call_stream(self, method, *args, **kwargs) -> StreamResult:
+        """Send a generator method (or module-level generator function):
+        its chunks arrive on the returned ``StreamResult`` as the child
+        produces them. Collecting the result before its end cancels it."""
+        h = self._send(StreamResult, method, args, kwargs)
+        weakref.finalize(h, _cancel_later, weakref.ref(self), h._sink)
         return h
+
+    def _send(self, kind, method, args, kwargs):
+        name = method if isinstance(method, str) else method.__name__
+        stream = kind is StreamResult
+        with self._send_lock:
+            call_id = self._next_id
+            self._next_id += 1
+        h = kind(self, call_id, name)
+        msg = _dumps((call_id, method, args, kwargs, stream), f"the arguments of {self.name}.{name}")
+        link = self._link
+        with link.lock:
+            dead = link.dead
+            if dead is None:
+                link.pending[call_id] = h._sink if stream else h
+        if dead is not None:
+            err = ActorDiedError(f"{dead} before {name} returned")
+            if stream:
+                h._end(err)
+            else:
+                h._set(False, err)
+            return h
+        try:
+            with self._send_lock:
+                self._calls.send_bytes(msg)
+        except OSError:  # the pipe is closed: the process is going
+            self._proc.join(KILL_GRACE_S)
+            link.mark_dead()
+        return h
+
+    def _control(self, msg: tuple) -> None:
+        """A stream's acknowledgement or cancellation; lost if the process
+        is gone."""
+        data = pickle.dumps(msg)
+        try:
+            with self._send_lock:
+                self._calls.send_bytes(data)
+        except OSError:
+            pass
 
     def kill(self) -> None:
         """Terminate the process (then kill it after ``KILL_GRACE_S``); its
         pending results become ``ActorDiedError``."""
         self._reaper()
-        self._mark_dead(f"{self.name} (pid {self.pid}) was killed")
-
-    # -- replies ----------------------------------------------------------
-
-    def _readable(self) -> list:
-        return [self._replies, self._proc.sentinel]
-
-    def _drain(self) -> None:
-        """Take every reply that has arrived; at end of file (the process
-        has gone) fail what is still pending."""
-        if self._dead is not None:
-            return
-        # read before draining: a process seen exited here has all its
-        # replies in the pipe, so the drain below takes them
-        exited = self._proc.exitcode is not None
-        try:
-            while self._replies.poll():
-                call_id, ok, value = self._replies.recv()
-                h = self._pending.pop(call_id, None)
-                if h is None:
-                    continue
-                if not ok:
-                    value = RemoteError(f"{self.name}.{h.method} raised in process "
-                                        f"{self.pid}:\n{value}")
-                h._set(ok, value)
-        except (EOFError, OSError):
-            self._mark_dead()
-            return
-        if exited:
-            self._mark_dead()
-
-    def _mark_dead(self, why: Optional[str] = None) -> None:
-        if self._dead is None:
-            self._dead = why or (f"{self.name} (pid {self.pid}) exited with code "
-                                 f"{self._proc.exitcode}")
-        for h in self._pending.values():
-            h._set(False, ActorDiedError(f"{self._dead} before {h.method} returned"))
-        self._pending.clear()
+        self._link.mark_dead(f"{self.name} (pid {self.pid}) was killed")
 
     def __repr__(self):
         state = "alive" if self.is_alive() else "dead"
         return f"<ProcessActor {self.name} pid={self.pid} {state}>"
+
+
+def _cancel_later(actor_ref, sink: _StreamSink) -> None:
+    """A ``StreamResult`` was collected: if its stream was still open,
+    cancel it from a thread of its own (a finalizer may run on a thread
+    that holds the actor's send lock)."""
+    actor = actor_ref()
+    if actor is None or sink.done:
+        return
+    try:
+        threading.Thread(target=actor._control, args=(("cancel", sink.call_id),),
+                         daemon=True).start()
+    except RuntimeError:  # the interpreter is shutting down
+        pass
 
 
 def start_all(actors: list) -> list:
@@ -286,20 +556,15 @@ def wait(handles: list, num_returns: int = 1,
          timeout: Optional[float] = None) -> tuple[list, list]:
     """Wait until ``num_returns`` of ``handles`` are done (a value or an
     error), or ``timeout`` seconds pass. Returns (done, not done), each in
-    the order given."""
+    the order given. Safe from any thread."""
     deadline = None if timeout is None else time.monotonic() + timeout
-    while sum(h.done for h in handles) < num_returns:
-        left = None if deadline is None else max(0.0, deadline - time.monotonic())
-        owners: dict[Any, ProcessActor] = {}
-        for h in handles:
-            if not h.done:
-                owners.update(dict.fromkeys(h.actor._readable(), h.actor))
-        if not owners:  # fewer handles than num_returns, all done
-            break
-        for obj in _wait_ready(list(owners), left):
-            owners[obj]._drain()
-        if left == 0.0:  # the deadline passed: one look at the pipes, no wait
-            break
+    num_returns = min(num_returns, len(handles))
+    with _CHANGED:
+        while sum(h.done for h in handles) < num_returns:
+            left = None if deadline is None else deadline - time.monotonic()
+            if left is not None and left <= 0:
+                break
+            _CHANGED.wait(left)
     done = [h for h in handles if h.done][:num_returns]
     ids = {id(h) for h in done}
     return done, [h for h in handles if id(h) not in ids]
@@ -310,8 +575,9 @@ def get(handle, timeout: float = CALL_TIMEOUT_S):
     the call's ``ActorError``, or ``TimeoutError`` after ``timeout``
     seconds."""
     if isinstance(handle, (list, tuple)):
-        deadline = time.monotonic() + timeout
-        return [get(h, max(0.0, deadline - time.monotonic())) for h in handle]
+        deadline = None if timeout is None else time.monotonic() + timeout
+        return [get(h, None if deadline is None else max(0.0, deadline - time.monotonic()))
+                for h in handle]
     done, _ = wait([handle], 1, timeout)
     if not done:
         raise TimeoutError(f"{handle!r} did not return within {timeout:.0f} s")

@@ -292,6 +292,10 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert REPO / "ray_tpu_torch" / "tune" / "search" / "gp_search.py" in files
     assert REPO / "ray_tpu_torch" / "data" / "execution.py" in files
     assert REPO / "ray_tpu_torch" / "data" / "dataset.py" in files
+    for name in ("api.py", "batching.py", "config.py", "controller.py", "deployment.py",
+                 "handle.py", "multiplex.py", "proxy.py", "replica.py", "streaming.py"):
+        assert REPO / "ray_tpu_torch" / "serve" / name in files
+    assert REPO / "ray_tpu_torch" / "tools" / "serve_bench.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
