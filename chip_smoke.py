@@ -183,6 +183,29 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 proxy, HTTP p50/p99, SSE TTFT, the echo round trip by handle and
                 by HTTP, each replica's start-up, engine build and peak memory,
                 the upscale's and the replacement's seconds.
+ 15e. openai_app — the rest of Serve (tools/serve_bench.py:openai_app): (a)
+                serve.schema.deploy of the OpenAI app (build_openai_app via
+                serve_bench.openai_builder) on the serve phase's config, one
+                LLMServer replica leasing half of the card, the router's
+                num_replicas overridden to 2 (status() shows it); through
+                the proxy /v1/models, 16 concurrent greedy /v1/completions x
+                32 tokens, a chat completion, two SSE streams (a completion
+                and the chat), an unknown model; (b) an ASGI ingress (a CPU
+                process) at /api whose /generate calls the LLM deployment's
+                handle off its event loop; (c) once (a) is deleted,
+                build_gang_deployment(num_workers=1): a replica spawning
+                one NCCL rank that leases the card, 16 concurrent
+                completions through GangLLMServer.__call__, the replica's
+                process killed and a new gang serving one more request.
+                Every completion's text equal to the serve phase's (an SSE
+                stream's chunks joined to its per-token texts), the chat's
+                to its own stream's; every decode step a graph replay and
+                RMSNorm launches equal to the engine's count in the LLM
+                replica and in each gang's rank (read there); no lease, no
+                serve process and no rank left after serve.shutdown(); tok/s
+                and HTTP p50/p99 through the router, SSE TTFT, the
+                replica's start-up and engine build, the gang's start-up,
+                the seconds to replace the killed gang.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -2688,6 +2711,42 @@ def phase_serve_app(torch, card: str, serve: dict) -> dict:
     return out
 
 
+def phase_openai_app(torch, card: str, serve: dict) -> dict:
+    """The rest of Serve on the port's own processes
+    (ray_tpu_torch.tools.serve_bench.openai_app), through the entry points
+    a user calls: the OpenAI app deployed from a config
+    (serve.schema.deploy; build_openai_app of the serve phase's config,
+    llama3.2-3b at full width and depth, seeded bf16 weights, the fused
+    RMSNorm, 16 slots x 1024, one LLMServer replica of {"GPU": 0.5}, two
+    router replicas); an ASGI ingress calling the LLM deployment's handle;
+    then a gang deployment (build_gang_deployment, one NCCL rank spawned by
+    its replica, prefill buckets from 128 so that its chunk pads a prompt
+    as the serve phase's engine did), killed once and replaced. Limits:
+    every completion's text equal to the serve phase's greedy text for its
+    prompt (its first 32 tokens; an SSE stream's chunks joined to the
+    per-token texts), the chat's to its own stream's; every decode step of
+    the LLM replica and of each gang's rank a graph replay and its RMSNorm
+    launches, counted in its own process, equal to what its engine's
+    counters give; the router override shown by status(); half of card 0
+    leased by the LLM replica and card 0 by the gang's rank, none and no
+    process left after serve.shutdown()."""
+    from ray_tpu_torch.llm.tokenizer import get_tokenizer
+    from ray_tpu_torch.tools import serve_bench as sb
+
+    cfg = _serve_config({})
+    if sb.card_llm_config() != cfg or sb.serve_prompts() != _serve_prompts():
+        raise AssertionError("openai_app: serve_bench's engine or prompts are not the serve "
+                             "phase's")
+    want = sb.expected_texts(serve["tokens_by_prompt"], _serve_prompts(), get_tokenizer("byte"))
+    gc_collect(torch)  # the parent holds no model while the replicas run
+    out = {"phase": "openai_app", "card": card, "model": "llama3.2-3b",
+           **sb.openai_app(cfg, _serve_prompts(), want)}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"openai_app: {out['failed_checks']}")
+    return out
+
+
 def emit_holders(phase: str) -> None:
     """The card ledger's live leases after a phase that spawns processes:
     a rank or actor that outlived its phase shows here, under its pid."""
@@ -2723,7 +2782,7 @@ def main() -> int:
     timings = {}
 
     spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "data", "serve_app",
-                "parallel", "rllib_remote"}
+                "openai_app", "parallel", "rllib_remote"}
 
     def timed_phase(name, fn):
         t = time.perf_counter()
@@ -2759,6 +2818,7 @@ def main() -> int:
     tune = timed_phase("tune", phase_tune)
     data = timed_phase("data", lambda torch, card: phase_data(torch, card, batch))
     serve_app = timed_phase("serve_app", lambda torch, card: phase_serve_app(torch, card, serve))
+    openai = timed_phase("openai_app", lambda torch, card: phase_openai_app(torch, card, serve))
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
@@ -2812,6 +2872,10 @@ def main() -> int:
                              "data": data["launches"]["rmsnorm"],
                              # the serve_app phase's LLMServer replicas, their own counters
                              "serve_app": serve_app["launches"]["rmsnorm"],
+                             # the openai_app phase's LLMServer replica and
+                             # its gangs' rank processes, their own counters
+                             "openai_app": openai["launches"]["openai_app"],
+                             "gang_app": openai["launches"]["gang_app"],
                              # the gang's rank process, its own counters
                              "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],

@@ -327,6 +327,13 @@ def default_ledger() -> CardLedger:
     return _default
 
 
+def set_default_ledger(ledger: CardLedger) -> None:
+    """``ledger`` as this process's default for the rest of its life: a
+    spawned process that leases from its parent's ledger."""
+    global _default
+    _default = ledger
+
+
 @contextlib.contextmanager
 def use_ledger(ledger: CardLedger):
     """``ledger`` as this process's default inside the block."""

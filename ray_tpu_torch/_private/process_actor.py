@@ -55,11 +55,22 @@ on it.
   finalizer does the same when the handle is collected or the interpreter
   exits, and the process is a daemon besides: none outlives its owner.
   When the parent goes, the child's call pipe closes, and the child exits.
+- *Process groups.* A daemon may not spawn processes of its own. With
+  ``leads_group=True`` (Serve's replicas, one of which may host a gang of
+  rank processes) the child is no daemon: it leads a process group of its
+  own, which what it spawns joins. When its call pipe closes (the parent
+  closed it, or went) it ends the group's other members (SIGKILL) and
+  exits; ``kill()``, the finalizer and the interpreter's exit end the
+  group from the parent (``spawn_env.end_process_group``, as a Tune
+  trial's group is ended). No process the actor spawned outlives it, and
+  their leases end with them.
 """
 
 from __future__ import annotations
 
+import atexit
 import multiprocessing
+import multiprocessing.util  # noqa: F401 — registers its exit hook before this module's
 import os
 import pickle
 import queue
@@ -70,7 +81,8 @@ import weakref
 from typing import Callable, Optional
 
 from ray_tpu_torch._private.cards import Lease
-from ray_tpu_torch._private.spawn_env import process_env, start_process
+from ray_tpu_torch._private.spawn_env import (end_process_group, kill_group_members,
+                                              process_env, start_process)
 
 # the JAX package's deadline on a remote runner's sample
 # (ray_tpu/rllib/env/env_runner.py:405)
@@ -250,10 +262,15 @@ class StreamResult:
 # -- the child ------------------------------------------------------------------
 
 
-def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: int = 1) -> None:
+def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: int = 1,
+                leads_group: bool = False) -> None:
     """The child's body: build the object, then run calls until the parent
     closes the call pipe; one at a time in order, or on a pool of
-    ``max_concurrency`` threads."""
+    ``max_concurrency`` threads. ``leads_group``: first become the leader
+    of a process group of its own, whose other members are ended (SIGKILL)
+    when the parent closes the call pipe or goes."""
+    if leads_group:
+        os.setpgid(0, 0)
     if one_thread:
         import torch
 
@@ -342,22 +359,29 @@ def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: 
     if max_concurrency <= 1:
         while (msg := inbox.get()) is not None:
             run(msg)
-        return
-    from concurrent.futures import ThreadPoolExecutor
+    else:
+        from concurrent.futures import ThreadPoolExecutor
 
-    pool = ThreadPoolExecutor(max_concurrency, thread_name_prefix="actor-call")
-    while (msg := inbox.get()) is not None:
-        pool.submit(run, msg)
+        pool = ThreadPoolExecutor(max_concurrency, thread_name_prefix="actor-call")
+        while (msg := inbox.get()) is not None:
+            pool.submit(run, msg)
     # the parent closed the call pipe (or went): calls still running are
-    # abandoned, as a killed process's are
-    os._exit(0)
+    # abandoned, as a killed process's are, and what this process spawned
+    # ends with it
+    if leads_group:
+        kill_group_members(os.getpid(), but=os.getpid())
+    if max_concurrency > 1:
+        os._exit(0)
 
 
 # -- the parent -----------------------------------------------------------------
 
 
-def _reap(proc, conns, grace_s: float) -> None:
-    """Terminate, join with a deadline, kill; close the pipes."""
+def _reap(proc, conns, grace_s: float, group: bool = False) -> None:
+    """Terminate, join with a deadline, kill; close the pipes. ``group``:
+    the process leads a process group, which is ended whole first."""
+    if group:
+        end_process_group(proc.pid)
     if proc.is_alive():
         proc.terminate()
         proc.join(grace_s)
@@ -420,15 +444,28 @@ class _Link:
                 h._set(False, err)
 
 
+# the live actors that lead a process group: ended at the interpreter's
+# exit by a hook that runs before multiprocessing's own (registered first),
+# which would join them, as they are no daemons, and wait for ever
+_GROUP_LEADERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+@atexit.register
+def _end_group_leaders() -> None:
+    for actor in list(_GROUP_LEADERS):
+        actor.kill()
+
+
 class ProcessActor:
     """``cls(*args, **kwargs)`` in a spawned process of its own; ``lease``
     is the card ledger's lease it holds (its card), or None for a CPU
     process that holds nothing; ``max_concurrency`` the calls it runs at
-    once (1: one at a time, in order)."""
+    once (1: one at a time, in order); ``leads_group`` lets it spawn
+    processes of its own, which end with it."""
 
     def __init__(self, cls, args: tuple = (), kwargs: Optional[dict] = None, *,
                  lease: Optional[Lease] = None, name: Optional[str] = None,
-                 max_concurrency: int = 1):
+                 max_concurrency: int = 1, leads_group: bool = False):
         self.name = name or cls.__name__
         try:
             blob = _dumps((cls, tuple(args), dict(kwargs or {})),
@@ -438,8 +475,9 @@ class ProcessActor:
             replies_r, replies_w = mp.Pipe(duplex=False)
             cards = lease.cards if lease is not None else []
             self._proc = start_process(
-                mp, _actor_main, (blob, calls_r, replies_w, not cards, max(1, max_concurrency)),
-                name=self.name, env=process_env(cards, 1), lease=lease, daemon=True)
+                mp, _actor_main,
+                (blob, calls_r, replies_w, not cards, max(1, max_concurrency), leads_group),
+                name=self.name, env=process_env(cards, 1), lease=lease, daemon=not leads_group)
         finally:
             if lease is not None:
                 lease.release()  # a no-op once the child holds it
@@ -452,7 +490,9 @@ class ProcessActor:
         self.ready = PendingResult(self, 0, "__init__")
         self._link.pending[0] = self.ready
         self._reaper = weakref.finalize(self, _reap, self._proc, (calls_w, replies_r),
-                                        KILL_GRACE_S)
+                                        KILL_GRACE_S, leads_group)
+        if leads_group:
+            _GROUP_LEADERS.add(self)
         threading.Thread(target=self._link.read_loop, name=f"replies-{self.name}",
                          daemon=True).start()
 

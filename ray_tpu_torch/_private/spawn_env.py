@@ -123,7 +123,10 @@ def lead_process_group() -> None:
 
 
 def _group_members(pgid: int) -> list[int]:
-    """The pids of the live (not zombie) processes of process group ``pgid``."""
+    """The pids of the live processes of process group ``pgid``: not
+    zombies, or zombies whose main thread has exited while others have not
+    yet (a killed process's open files, its lease among them, close only
+    with its last thread)."""
     out = []
     for entry in os.listdir("/proc"):
         if not entry.isdigit():
@@ -131,11 +134,21 @@ def _group_members(pgid: int) -> list[int]:
         try:
             with open(f"/proc/{entry}/stat") as f:
                 fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[2]) == pgid and (fields[0] != "Z"
+                                           or len(os.listdir(f"/proc/{entry}/task")) > 1):
+                out.append(int(entry))
         except (OSError, IndexError):
             continue
-        if int(fields[2]) == pgid and fields[0] != "Z":
-            out.append(int(entry))
     return out
+
+
+def kill_group_members(pgid: int, but: int) -> None:
+    """SIGKILL every live member of process group ``pgid`` but ``but``: a
+    group's leader ending what it spawned before it exits itself."""
+    for pid in _group_members(pgid):
+        if pid != but:
+            with suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, signal.SIGKILL)
 
 
 def end_process_group(pgid: int) -> list[int]:

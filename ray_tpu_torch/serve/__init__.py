@@ -4,12 +4,16 @@
 The JAX package's public names (``ray_tpu/serve/__init__.py``):
 ``@serve.deployment`` + ``serve.run``, the controller, the HTTP proxy,
 handles with P2C routing and composition, queue-depth autoscaling, dynamic
-batching, model multiplexing. The controller, the proxy and the router
-for handles inside replicas are threads of the driver; each replica is a
-``ProcessActor`` of its own that leases what its deployment names from the
-host's card ledger (``controller.py``). Not ported yet: the ASGI ingress
-(``serve.ingress``), the declarative YAML deploy, the gRPC proxy and one
-proxy per node (``start_proxies``, ``list_proxies``).
+batching, model multiplexing, the ASGI ingress (``serve.ingress``,
+``asgi.py``), the declarative deploy (``schema.deploy`` / ``schema.status``
+of a dict or a YAML file, ``schema.py``) and the gRPC proxy
+(``start_grpc_proxy``, ``grpc_proxy.py``; ``grpc`` is imported only when
+it starts). The controller, the proxies and the router for handles inside
+replicas are threads of the driver; each replica is a ``ProcessActor`` of
+its own, leading a process group (so it may host a gang of rank
+processes), that leases what its deployment names from the host's card
+ledger (``controller.py``). Left out, with multi-host placement: one proxy
+per node (``start_proxies``, ``list_proxies``).
 """
 
 from ray_tpu_torch.serve.api import (
@@ -20,9 +24,11 @@ from ray_tpu_torch.serve.api import (
     shutdown,
     status,
 )
+from ray_tpu_torch.serve.asgi import ingress
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.serve.config import AutoscalingConfig, DeploymentConfig, ProxyConfig
 from ray_tpu_torch.serve.deployment import Application, Deployment, deployment
+from ray_tpu_torch.serve.grpc_proxy import GrpcProxyServer, start_grpc_proxy
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id, multiplexed
 from ray_tpu_torch.serve.proxy import ProxyServer, Request, start_proxy
@@ -35,6 +41,7 @@ __all__ = [
     "DeploymentConfig",
     "DeploymentHandle",
     "DeploymentResponse",
+    "GrpcProxyServer",
     "ProxyConfig",
     "ProxyServer",
     "Request",
@@ -44,10 +51,12 @@ __all__ = [
     "get_app_handle",
     "get_deployment_handle",
     "get_multiplexed_model_id",
+    "ingress",
     "multiplexed",
     "run",
     "RawBody",
     "shutdown",
+    "start_grpc_proxy",
     "start_proxy",
     "status",
 ]

@@ -137,12 +137,14 @@ def get_app_handle(app_name: str = "default") -> DeploymentHandle:
 
 
 def shutdown():
-    """Stop the proxy (draining it), every replica (their leases end with
-    them) and the controller."""
+    """Stop the proxies (draining the HTTP one), every replica (their
+    leases, and what they spawned, end with them) and the controller."""
     global _controller
+    from ray_tpu_torch.serve.grpc_proxy import _stop_grpc_proxy
     from ray_tpu_torch.serve.proxy import _stop_proxy
 
     _stop_proxy()
+    _stop_grpc_proxy()
     with _controller_lock:
         controller, _controller = _controller, None
     if controller is not None:

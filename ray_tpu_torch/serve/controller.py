@@ -17,8 +17,13 @@ The port's process design:
   ``serve.shutdown()`` stops every replica, which ends every lease.
 - *A replica is a ``ProcessActor``* hosting ``replica.ReplicaActor``, with
   ``max_concurrency = max_ongoing_requests + 2`` (as the JAX controller
-  starts its actors, ``controller.py:414``), a daemon of the driver: a
-  driver that goes takes its replicas with it (their call pipes close).
+  starts its actors, ``controller.py:414``). It leads a process group of
+  its own (``ProcessActor(leads_group=True)``), so that it may spawn
+  processes (a ``GangLLMServer``'s ranks) and every stop of it (a
+  scale-down, a replacement, ``serve.delete``, ``serve.shutdown``) ends
+  them with it; a driver that goes takes the group with it. It leases
+  from the driver's card ledger, which it receives, so the ranks it
+  spawns lease from the same ledger.
 - *Leases.* ``_start_replica`` leases what ``ray_actor_options`` names
   from the host's card ledger through ``spawn_env.assign_cards`` (as Data's
   actor pools do, ``data/execution.py:408-414``): ``{"resources":
@@ -57,7 +62,7 @@ import time
 import traceback
 from typing import Optional
 
-from ray_tpu_torch._private.cards import LedgerError
+from ray_tpu_torch._private.cards import CardLedger, LedgerError, default_ledger
 from ray_tpu_torch._private.process_actor import ActorError, ProcessActor, get
 from ray_tpu_torch._private.spawn_env import assign_cards
 
@@ -400,9 +405,11 @@ class ServeController:
             )
         with self._lock:
             replica_name = f"serve:{state.name}#{state.next_replica_id}"
+        ledger = default_ledger()
         try:
             gpu, cpu = self._lease_request(opts)
-            lease, = assign_cards(1, gpu, f"serve replica {replica_name}", cpu=cpu)
+            lease, = assign_cards(1, gpu, f"serve replica {replica_name}", cpu=cpu,
+                                  ledger=ledger)
         except (LedgerError, RuntimeError, ValueError) as e:
             with self._lock:
                 if state.message != str(e):
@@ -416,12 +423,16 @@ class ServeController:
         actor = ProcessActor(
             _replica_cls(),
             (spec["serialized_target"], spec["init_args_payload"], state.name,
-             replica_name, (self.router.address, self.router.authkey)),
+             replica_name, (self.router.address, self.router.authkey),
+             # the driver's ledger, its cards resolved here (the replica may
+             # see none), for what the replica spawns
+             CardLedger(ledger.root, cards=ledger.card_ids(), cpus=ledger.cpu_total())),
             lease=lease, name=replica_name,
             # +2 headroom so control-plane calls (check_health,
             # get_metrics, reconfigure) can't starve behind a saturated
             # request pool and get a healthy replica killed
             max_concurrency=spec.get("max_ongoing_requests", 8) + 2,
+            leads_group=True,
         )
         with self._lock:
             state.replicas[replica_name] = actor

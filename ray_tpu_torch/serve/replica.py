@@ -13,7 +13,9 @@ Its target arrives as the bytes of a reference to it (``api.target_ref``),
 its arguments as their standard pickle: the constructor here unpickles
 both, so a target that does not import fails the replica's construction.
 ``router`` is the driver's router address and key, through which a
-handle built here (composition) sends its calls (``handle.py``).
+handle built here (composition) sends its calls (``handle.py``);
+``ledger`` the driver's card ledger, this process's default from the
+start, so that processes it spawns (a gang's ranks) lease from it.
 """
 
 from __future__ import annotations
@@ -50,11 +52,15 @@ class ReplicaActor:
         deployment_name: str,
         replica_id: str,
         router: Optional[tuple] = None,
+        ledger=None,
     ):
         t0 = time.time()
+        from ray_tpu_torch._private.cards import set_default_ledger
         from ray_tpu_torch.serve import handle
 
         handle._ROUTER_ADDRESS = router
+        if ledger is not None:
+            set_default_ledger(ledger)
         target = pickle.loads(serialized_target).resolve()
         args, kwargs = pickle.loads(init_args_payload)
         args, kwargs = handle._resolve_handle_markers(args, kwargs)
@@ -114,6 +120,7 @@ class ReplicaActor:
         with self._lock:
             self._ongoing += 1
             self._total += 1
+        result = None
         try:
             result = self._resolve_and_call(method, args, kwargs)
             if hasattr(result, "__anext__"):
@@ -136,6 +143,11 @@ class ReplicaActor:
             else:
                 yield self._picklable(result)
         finally:
+            # a stream cancelled mid-way closes this generator: close the
+            # handler's too, at once, so its own cleanup runs (an ASGI
+            # app's request sees its disconnect)
+            if inspect.isgenerator(result):
+                result.close()
             with self._lock:
                 self._ongoing -= 1
 

@@ -1,9 +1,11 @@
 """Serve on the card: an application of LLMServer replicas that each lease
 half of the card, behind an ingress deployment and the HTTP proxy, through
-the entry points a user calls.
+the entry points a user calls; and the OpenAI app, an ASGI ingress and a
+gang deployment.
 
     python -m ray_tpu_torch.tools.serve_bench          # the card: the smoke's serve_app part
     python -m ray_tpu_torch.tools.serve_bench --cpu    # rehearsal on the CPU, tiny model
+    python -m ray_tpu_torch.tools.serve_bench --part openai_app [--cpu]   # the openai_app part
 
 ``serve_app`` (``chip_smoke.py``'s serve_app phase runs it) deploys, with
 ``ray_tpu_torch.serve.run``:
@@ -29,6 +31,32 @@ each replica's kernel counters, read in its own process before the
 controller stops it; the downscale back to 1 replica; the remaining
 replica's process killed, its replacement ready, and one more request.
 
+``openai_app`` (the smoke's openai_app phase) runs, in order:
+
+- (a) ``serve.schema.deploy`` of one application whose ``import_path`` is
+  ``openai_builder``: ``build_openai_app`` of the same engine config with
+  one replica of ``{"GPU": 0.5}``, and one override (``openai-router``'s
+  ``num_replicas: 2``, which ``status()`` then shows). Through
+  ``start_proxy``: ``/v1/models``; 16 concurrent greedy ``/v1/completions``
+  of 32 tokens; one ``/v1/chat/completions``; two SSE streams at once, a
+  completion and the same chat; a request for an unknown model;
+- (b) an ASGI ingress (``AsgiApi``, a CPU process leasing nothing, at
+  ``/api``) serving ``make_asgi_app``'s routes, among them ``/generate``,
+  which calls the LLM deployment's handle off the app's event loop;
+- (c) after (a)'s application is deleted (its lease with it),
+  ``build_gang_deployment(num_workers=1)``: one rank process leasing the
+  card, spawned by the replica; 16 concurrent completions through the
+  gang's own entry (``GangLLMServer.__call__``, at ``/gang``); the
+  replica's process killed, a new gang ready, one more request.
+
+Its limits: every completion's text equal to the expected text for its
+prompt (a streamed completion's chunks, joined, to the per-token texts),
+``/api/generate``'s too, the chat's equal to its own stream's; in the LLM
+replica and in each gang's rank every decode step a graph replay and the
+RMSNorm launches equal to what the engine's counters give; the router
+override applied; no lease held, no ``serve:`` process and no rank left
+after ``serve.shutdown()``.
+
 Limits (``failed_checks``; any makes ``ok`` false): every text equal to
 the expected text for its prompt (an SSE stream's chunks, joined, equal to
 the per-token texts); in each replica every decode step a graph replay and
@@ -43,9 +71,13 @@ device number.
 
 from __future__ import annotations
 
+import asyncio
+import dataclasses
 import http.client
 import json
+import multiprocessing
 import os
+import signal
 import threading
 import time
 
@@ -92,6 +124,148 @@ class Echo:
         return x.json() if hasattr(x, "json") else x
 
 
+def make_asgi_app(generate=None):
+    """A plain ASGI app standing in for FastAPI (installed on neither
+    machine): path parameters, a middleware, JSON, streamed, disconnect-
+    guarded and bodiless routes, a header echoing its input, the lifespan's
+    state; with ``generate`` (a blocking function of a JSON body), a
+    ``POST /generate`` route that runs it off the event loop."""
+
+    async def app(scope, receive, send):
+        if scope["type"] == "lifespan":
+            while True:
+                msg = await receive()
+                if msg["type"] == "lifespan.startup":
+                    scope.get("state", {})["from_lifespan"] = "db-pool"
+                await send({"type": f"{msg['type']}.complete"})
+                if msg["type"] == "lifespan.shutdown":
+                    return
+        path = scope["path"]
+        if path == "/state":
+            await _json_resp(send, 200, {"state": scope.get("state", {}).get("from_lifespan")})
+            return
+        if path == "/nobody":
+            # 204 goes out with no chunk framing, or the next request on
+            # this kept-alive connection desyncs
+            await send({"type": "http.response.start", "status": 204,
+                        "headers": [(b"x-deleted", b"yes")]})
+            await send({"type": "http.response.body", "body": b""})
+            return
+        if path == "/redirect":
+            # echoes its (decoded) query into a header: CR/LF must not
+            # reach the wire
+            from urllib.parse import unquote
+
+            target = unquote(scope["query_string"].decode())
+            await send({"type": "http.response.start", "status": 302,
+                        "headers": [(b"location", target.encode())]})
+            await send({"type": "http.response.body", "body": b""})
+            return
+        if path == "/guarded-stream":
+            # Starlette's StreamingResponse shape: a listen_for_disconnect
+            # task races the stream
+            disconnect = asyncio.ensure_future(_wait_disconnect(receive))
+            try:
+                await send({"type": "http.response.start", "status": 200,
+                            "headers": [(b"content-type", b"text/plain")]})
+                for i in range(4):
+                    if disconnect.done():
+                        return  # the client went: a truncated stream
+                    await send({"type": "http.response.body", "body": f"g{i};".encode(),
+                                "more_body": True})
+                    await asyncio.sleep(0.01)
+                await send({"type": "http.response.body", "body": b"gend"})
+            finally:
+                disconnect.cancel()
+            return
+        if path.startswith("/items/"):
+            item_id = path.split("/")[2]
+            if not item_id.isdigit():
+                await _json_resp(send, 422, {"error": "item_id must be int"})
+                return
+            await _json_resp(send, 200, {"item_id": int(item_id),
+                                         "q": scope["query_string"].decode()})
+            return
+        if path == "/echo" and scope["method"] == "POST":
+            await _json_resp(send, 200, {"len": len(await _read_body(receive))})
+            return
+        if path == "/stream":
+            await send({"type": "http.response.start", "status": 200,
+                        "headers": [(b"content-type", b"text/plain")]})
+            for i in range(4):
+                await send({"type": "http.response.body", "body": f"part{i};".encode(),
+                            "more_body": True})
+                await asyncio.sleep(0.01)
+            await send({"type": "http.response.body", "body": b"end"})
+            return
+        if path == "/generate" and generate is not None and scope["method"] == "POST":
+            body = json.loads(await _read_body(receive))
+            out = await asyncio.get_running_loop().run_in_executor(None, generate, body)
+            await _json_resp(send, 200, out)
+            return
+        await _json_resp(send, 404, {"error": "not found"})
+
+    def middleware(inner):
+        """Stamps a header on every response: the whole ASGI chain runs."""
+
+        async def wrapped(scope, receive, send):
+            if scope["type"] != "http":
+                await inner(scope, receive, send)
+                return
+
+            async def send2(message):
+                if message["type"] == "http.response.start":
+                    message = dict(message)
+                    message["headers"] = list(message.get("headers") or []) + [
+                        (b"x-middleware", b"on")]
+                await send(message)
+
+            await inner(scope, receive, send2)
+
+        return wrapped
+
+    return middleware(app)
+
+
+async def _json_resp(send, status, obj):
+    body = json.dumps(obj).encode()
+    await send({"type": "http.response.start", "status": status,
+                "headers": [(b"content-type", b"application/json")]})
+    await send({"type": "http.response.body", "body": body})
+
+
+async def _read_body(receive) -> bytes:
+    body = b""
+    while True:
+        msg = await receive()
+        body += msg.get("body", b"")
+        if not msg.get("more_body"):
+            return body
+
+
+async def _wait_disconnect(receive):
+    while (await receive())["type"] != "http.disconnect":
+        pass
+
+
+# in an AsgiApi replica: the handle /generate calls
+_GENERATE: dict = {}
+
+
+def _generate(body: dict) -> dict:
+    return _GENERATE["handle"].completions.remote(body).result(timeout_s=600)
+
+
+@serve.ingress(make_asgi_app(generate=_generate))
+class AsgiApi:
+    """The ASGI ingress: ``make_asgi_app``'s routes, ``/generate`` going to
+    the LLM deployment named ``llm_deployment`` through its handle."""
+
+    def __init__(self, llm_deployment=None):
+        if llm_deployment is not None:
+            _GENERATE["handle"] = serve.get_deployment_handle(llm_deployment)
+
+
 def replica_report() -> dict:
     """In a replica's process: its pid, kernel launch counters and peak
     device memory."""
@@ -117,11 +291,12 @@ def build_apps(llm_config, device=None):
     return app, echo
 
 
-def _post(port: int, body: dict, timeout: float = 600.0) -> tuple:
+def _post(port: int, body: dict, timeout: float = 600.0, path: str = "/") -> tuple:
     """(status, reply JSON or SSE text, seconds to the first body byte, seconds)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     t0 = time.perf_counter()
-    conn.request("POST", "/", body=json.dumps(body), headers={"Content-Type": "application/json"})
+    conn.request("POST", path, body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
     resp = conn.getresponse()
     first = resp.read(1) if body.get("stream") else b""
     t_first = time.perf_counter() - t0
@@ -133,11 +308,13 @@ def _post(port: int, body: dict, timeout: float = 600.0) -> tuple:
 
 
 def _sse_text(raw: str) -> tuple[str, bool]:
-    """(the stream's joined choice texts, whether it ended with [DONE])."""
+    """(the stream's joined choice texts, or a chat stream's joined delta
+    contents, and whether it ended with [DONE])."""
     events = [e[len("data: "):] for e in raw.split("\n\n") if e.startswith("data: ")]
     done = bool(events) and events[-1] == "[DONE]"
     chunks = [json.loads(e) for e in events if e != "[DONE]"]
-    return "".join(c["choices"][0]["text"] for c in chunks), done
+    return "".join(c["choices"][0]["text"] if "text" in c["choices"][0]
+                   else c["choices"][0]["delta"].get("content", "") for c in chunks), done
 
 
 def _wait(cond, timeout_s: float, what: str, poll_s: float = 0.05):
@@ -376,6 +553,290 @@ def serve_app(llm_config, prompts: list, want: dict, device=None) -> dict:
     }
 
 
+ROUTER_REPLICAS = 2  # the deploy config's override of openai-router's num_replicas
+GANG_BUCKETS = (128, 256, 512, 1024)
+
+
+def rehearsal_llm_config():
+    """The CPU rehearsal's engine: the tiny model, fp32, 16 slots x 128."""
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, ModelConfig
+
+    return LLMConfig(model=ModelConfig(model_id="tiny", tokenizer="byte", seed=0),
+                     engine=EngineConfig(max_num_seqs=16, max_seq_len=128,
+                                         prefill_buckets=(32, 64, 128), dtype="float32"))
+
+
+def openai_builder(args: dict):
+    """``schema.deploy``'s ``import_path`` target: ``build_openai_app`` of
+    the card's engine config (``{"cpu": true}``: the rehearsal's, on the
+    CPU), one LLM replica of ``{"GPU": 0.5}`` (on the CPU: leasing
+    nothing)."""
+    from ray_tpu_torch.llm import build_openai_app
+
+    cpu = bool(args.get("cpu"))
+    cfg = rehearsal_llm_config() if cpu else card_llm_config()
+    cfg = dataclasses.replace(cfg, num_replicas=1,
+                              ray_actor_options=None if cpu else {"resources": {"GPU": 0.5}})
+    return build_openai_app(cfg, device="cpu" if cpu else None)
+
+
+def gang_llm_config(llm_config):
+    """The gang's config: the same engine with prefill buckets from 128, so
+    that its prefill chunk (the smallest bucket) pads a ~100-token prompt
+    to the width the engine pads it to, and greedy tokens meet."""
+    return dataclasses.replace(llm_config, engine=dataclasses.replace(
+        llm_config.engine, prefill_buckets=tuple(
+            b for b in GANG_BUCKETS if b <= llm_config.engine.max_seq_len)))
+
+
+def _gang_row(counts: list, n_layers: int) -> dict:
+    """The gang's one rank's RMSNorm launches since its reset and what its
+    program counters give."""
+    (rank,) = counts
+    prog = rank["programs"]
+    n_norms = 2 * n_layers + 1
+    expected = (n_norms * (prog["decode_steps"] + prog["prefill_final_chunks"])
+                + (n_norms - 1) * prog["prefill_mid_chunks"])
+    return {"rmsnorm_launches": rank["launches"].get("rmsnorm", 0),
+            "rmsnorm_launches_expected": expected,
+            **{k: prog[k] for k in ("decode_programs", "decode_steps", "decode_graph_replays",
+                                    "prefill_mid_chunks", "prefill_final_chunks")}}
+
+
+def openai_app(llm_config, prompts: list, want: dict, device=None) -> dict:
+    """The OpenAI app through a declarative deploy, an ASGI ingress and a
+    gang deployment, on the card (``device=None``) or the CPU; ``want``:
+    each prompt's expected ``{"text", "stream_text"}`` at ``MAX_TOKENS``
+    (for ``llm_config``, which must be ``openai_builder``'s)."""
+    from ray_tpu_torch._private.spawn_env import _group_members
+    from ray_tpu_torch.llm import build_gang_deployment
+    from ray_tpu_torch.serve import api, schema
+
+    on_card = device != "cpu"
+    ledger = default_ledger()
+    served = llm_config.served_name
+    llm_name, gang_name = f"llm:{served}", f"gang:{served}"
+    n_layers = llm_config_layers(llm_config)
+    bad, texts = [], []
+    t_phase = time.perf_counter()
+
+    def body(p, **kw):
+        return {"model": served, "prompt": p, "max_tokens": MAX_TOKENS, "temperature": 0.0,
+                "ignore_eos": True, **kw}
+
+    def check_text(p, text, key="text", where=""):
+        texts.append(text == want[p][key])
+        if text != want[p][key]:
+            bad.append(f"{where} text for {p[:12]!r} differs ({key}): {text!r} != "
+                       f"{want[p][key]!r}")
+
+    def burst(port, path):
+        results = [None] * BURST
+
+        def one(i):
+            results[i] = _post(port, body(prompts[i]), path=path)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        for p, r in zip(prompts, results):
+            if r is None or r[0] != 200 or "choices" not in r[1]:
+                bad.append(f"{path}: a burst request failed: {r}")
+                continue
+            check_text(p, r[1]["choices"][0]["text"], where=path)
+        return wall, np.asarray([r[3] * 1e3 for r in results if r is not None])
+
+    gang_pids, rows, gang_rows, out = [], [], [], {}
+    with LedgerWatch(ledger) as watch:
+        try:
+            # (a) + (b): deployed together, so that their processes start at once
+            deployed = schema.deploy({"applications": [{
+                "name": "openai", "route_prefix": "/",
+                "import_path": "ray_tpu_torch.tools.serve_bench:openai_builder",
+                "args": {"cpu": not on_card},
+                "deployments": [{"name": "openai-router", "num_replicas": ROUTER_REPLICAS}]}]})
+            serve.run(serve.deployment(AsgiApi, name="asgi", max_ongoing_requests=16)
+                      .bind(llm_name), name="asgi", route_prefix="/api")
+            _, port = serve.start_proxy(port=0)
+            ctrl = api._controller
+            _wait(lambda: (len(_ready_replicas(ctrl, llm_name)) == 1
+                           and len(_ready_replicas(ctrl, "openai-router")) == ROUTER_REPLICAS
+                           and _ready_replicas(ctrl, "asgi")), 600, "the apps' replicas ready")
+            out["first_ready_s"] = time.perf_counter() - t_phase
+            router_status = schema.status()["applications"]["openai"]["deployments"][
+                "openai-router"]
+            if (deployed != ["openai"] or router_status["target"] != ROUTER_REPLICAS
+                    or router_status["replicas"] != ROUTER_REPLICAS):
+                bad.append(f"the deploy's override is not in status(): {router_status}")
+            (llm_replica, llm_actor), = _ready_replicas(ctrl, llm_name)
+            base = _counters(llm_actor)
+
+            status, reply, _, out["warmup_s"] = _post(port, body("warm up " * 4, max_tokens=8),
+                                                      path="/v1/completions")
+            if status != 200 or "choices" not in reply:
+                raise RuntimeError(f"openai_app: the warm-up request failed: {status} {reply}")
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/v1/models")
+            models = json.loads(conn.getresponse().read())
+            conn.close()
+            if [m["id"] for m in models.get("data", [])] != [served]:
+                bad.append(f"/v1/models: {models}")
+
+            wall, http_ms = burst(port, "/v1/completions")
+            out.update(burst_wall_s=wall, out_tok_per_s=BURST * MAX_TOKENS / wall,
+                       http_ms_p50=float(np.percentile(http_ms, 50)) if len(http_ms) else None,
+                       http_ms_p99=float(np.percentile(http_ms, 99)) if len(http_ms) else None)
+
+            chat = {"model": served, "messages": [{"role": "user", "content": prompts[0]}],
+                    "max_tokens": MAX_TOKENS, "temperature": 0.0, "ignore_eos": True}
+            status, reply, _, _ = _post(port, chat, path="/v1/chat/completions")
+            chat_text = (reply["choices"][0]["message"]["content"]
+                         if status == 200 and "choices" in reply else None)
+            if chat_text is None or reply["object"] != "chat.completion":
+                bad.append(f"the chat completion failed: {status} {reply}")
+            # two SSE streams at once: a completion and the same chat
+            sse_prompt = prompts[-1]
+            streams = [None, None]
+            jobs = [(body(sse_prompt, stream=True), "/v1/completions"),
+                    ({**chat, "stream": True}, "/v1/chat/completions")]
+
+            def stream(i):
+                streams[i] = _post(port, jobs[i][0], path=jobs[i][1])
+
+            threads = [threading.Thread(target=stream, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            for (_, path), st in zip(jobs, streams):
+                if st is None or st[0] != 200:
+                    bad.append(f"the SSE stream of {path} failed: {st}")
+                    continue
+                text, done = _sse_text(st[1])
+                if not done:
+                    bad.append(f"the SSE stream of {path} did not end with [DONE]")
+                if path == "/v1/completions":
+                    check_text(sse_prompt, text, "stream_text", where="SSE")
+                    out["sse_ttft_ms"] = st[2] * 1e3
+                elif text != chat_text:
+                    bad.append(f"the chat's SSE text {text!r} != its unary text {chat_text!r}")
+            status, reply, _, _ = _post(port, {**body(prompts[0]), "model": "no-such-model"},
+                                        path="/v1/completions")
+            if status != 200 or reply.get("error", {}).get("code") != 404:
+                bad.append(f"an unknown model's reply: {status} {reply}")
+
+            # (b) the ASGI ingress
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/api/items/7?q=x")
+            resp = conn.getresponse()
+            item = json.loads(resp.read())
+            conn.request("GET", "/api/stream")
+            resp2 = conn.getresponse()
+            streamed = resp2.read()
+            conn.close()
+            if (resp.status, item, resp.getheader("x-middleware")) != (
+                    200, {"item_id": 7, "q": "q=x"}, "on") or streamed != (
+                    b"part0;part1;part2;part3;end"):
+                bad.append(f"the ASGI routes: {resp.status} {item} {streamed!r}")
+            status, reply, _, out["asgi_generate_s"] = _post(port, body(prompts[1]),
+                                                            path="/api/generate")
+            if status != 200 or "choices" not in reply:
+                bad.append(f"/api/generate failed: {status} {reply}")
+            else:
+                check_text(prompts[1], reply["choices"][0]["text"], where="/api/generate")
+
+            now = _counters(llm_actor)
+            starts = {e[3]["replica"]: e[0] for e in ctrl.events if e[2] == "start"}
+            readies = {e[3]["replica"]: e[0] for e in ctrl.events if e[2] == "ready"}
+            rows.append({"replica": llm_replica, **_replica_row(
+                base, now, n_layers, {"start": starts.get(llm_replica),
+                                      "ready": readies.get(llm_replica)})})
+
+            # (c) the gang, once the LLM replica has stopped (its lease with it)
+            serve.delete("openai")
+            _wait(lambda: not any(llm_name in h.name for h in ledger.holders()), 60,
+                  "the LLM replica's lease released")
+            t_gang = time.perf_counter()
+            serve.run(build_gang_deployment(gang_llm_config(llm_config), num_workers=1,
+                                            device=device), name="gang", route_prefix="/gang")
+            _wait(lambda: _ready_replicas(ctrl, gang_name), 600, "the gang replica ready")
+            out["gang_ready_s"] = time.perf_counter() - t_gang
+            (g1, gactor1), = _ready_replicas(ctrl, gang_name)
+            gang_pids.append(gactor1.pid)
+            info = get(gactor1.call("handle_request", "model_info"), timeout=60)["gang"]
+            out["gang_rank_startup_s"] = info["rank_startup_s"]
+            get(gactor1.call("handle_request", "rank_counts", True), timeout=120)
+            wall, _ = burst(port, "/gang/v1/completions")
+            out.update(gang_burst_wall_s=wall, gang_out_tok_per_s=BURST * MAX_TOKENS / wall)
+            gang_rows.append({"replica": g1, **_gang_row(
+                get(gactor1.call("handle_request", "rank_counts"), timeout=120), n_layers)})
+
+            # the gang's replica killed: its rank ends with its process group,
+            # and a new gang takes its place
+            t_kill = time.perf_counter()
+            os.kill(gactor1.pid, signal.SIGKILL)
+            _wait(lambda: any(n != g1 for n, _ in _ready_replicas(ctrl, gang_name)), 600,
+                  "the killed gang replaced")
+            out["gang_replace_s"] = time.perf_counter() - t_kill
+            (g2, gactor2), = _ready_replicas(ctrl, gang_name)
+            gang_pids.append(gactor2.pid)
+            if _group_members(gactor1.pid):
+                bad.append(f"the killed gang's processes are alive: {_group_members(gactor1.pid)}")
+            get(gactor2.call("handle_request", "rank_counts", True), timeout=120)
+            status, reply, _, _ = _post(port, body(prompts[2]), path="/gang/v1/completions")
+            if status != 200 or "choices" not in reply:
+                bad.append(f"the request to the new gang failed: {status} {reply}")
+            else:
+                check_text(prompts[2], reply["choices"][0]["text"], where="the new gang")
+            gang_rows.append({"replica": g2, **_gang_row(
+                get(gactor2.call("handle_request", "rank_counts"), timeout=120), n_layers)})
+            starts = {e[3]["replica"]: e[0] for e in ctrl.events if e[2] == "start"}
+            readies = {e[3]["replica"]: e[0] for e in ctrl.events if e[2] == "ready"}
+            for r in gang_rows:
+                r["startup_s"] = readies[r["replica"]] - starts[r["replica"]]
+        finally:
+            serve.shutdown()
+    holders_after = [str(h) for h in ledger.holders()]
+    left = [p.pid for p in multiprocessing.active_children()
+            if p.name.startswith("serve:")] + [q for pid in gang_pids for q in _group_members(pid)]
+
+    for r in rows + gang_rows:
+        if on_card and r["decode_graph_replays"] != r["decode_steps"]:
+            bad.append(f"{r['replica']}: a decode step was no graph replay")
+        want_launches = r["rmsnorm_launches_expected"] if on_card else 0
+        if r["rmsnorm_launches"] != want_launches:
+            bad.append(f"{r['replica']}: rmsnorm launches {r['rmsnorm_launches']} != "
+                       f"{want_launches}")
+    name = "serve replica serve:llm:"
+    llm_holdings = sorted({(json.dumps(h.gpu, sort_keys=True), h.cpu)
+                           for hs in watch.seen for h in hs if name in h.name})
+    gang_holdings = sorted({(json.dumps(h.gpu, sort_keys=True), h.cpu)
+                            for hs in watch.seen for h in hs if "GPU ranks" in h.name})
+    if on_card and (llm_holdings != [(json.dumps({"0": 0.5}), 0.0)]
+                    or gang_holdings != [(json.dumps({"0": 1.0}), 0.0)]):
+        bad.append(f"not half of card 0 for the LLM replica and card 0 for the gang's rank: "
+                   f"{llm_holdings}, {gang_holdings}")
+    if holders_after:
+        bad.append(f"leases left: {holders_after}")
+    if left:
+        bad.append(f"processes left: {left}")
+    return {
+        "part": "openai_app", "device": device or "cuda", "phase_s": time.perf_counter() - t_phase,
+        "burst_requests": BURST, "max_tokens": MAX_TOKENS, **out,
+        "texts_equal": sum(texts), "texts": len(texts), "router_replicas": ROUTER_REPLICAS,
+        "llm_holdings": llm_holdings, "gang_holdings": gang_holdings,
+        "holders_after": holders_after, "processes_left": left,
+        "replicas": rows, "gangs": gang_rows,
+        "launches": {"openai_app": sum(r["rmsnorm_launches"] for r in rows),
+                     "gang_app": sum(r["rmsnorm_launches"] for r in gang_rows)},
+        "ok": not bad, "failed_checks": bad,
+    }
+
+
 def llm_config_layers(llm_config) -> int:
     """The model's depth as the engine resolves it."""
     from ray_tpu_torch.llm.config import resolve_llama_config
@@ -417,20 +878,16 @@ def serve_prompts() -> list:
 def main(argv=None) -> int:
     import argparse
 
-    from ray_tpu_torch.llm import EngineConfig, LLMConfig, ModelConfig, SamplingParams, TorchEngine
+    from ray_tpu_torch.llm import SamplingParams, TorchEngine
     from ray_tpu_torch.tools.decode_profile import card
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true", help="CPU replicas, tiny model")
+    ap.add_argument("--part", choices=("serve_app", "openai_app", "both"), default="serve_app")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else None
     smi = "cpu (rehearsal)" if args.cpu else card()
-    if args.cpu:
-        llm = LLMConfig(model=ModelConfig(model_id="tiny", tokenizer="byte", seed=0),
-                        engine=EngineConfig(max_num_seqs=16, max_seq_len=128,
-                                            prefill_buckets=(32, 64, 128), dtype="float32"))
-    else:
-        llm = card_llm_config()
+    llm = rehearsal_llm_config() if args.cpu else card_llm_config()
     prompts = serve_prompts()
     # the expected tokens: one engine in this process, the prompts together
     eng = TorchEngine(llm, device=device)
@@ -448,9 +905,13 @@ def main(argv=None) -> int:
         import torch
 
         torch.cuda.empty_cache()
-    out = serve_app(llm, prompts, want, device=device)
-    print(json.dumps({**out, "card": smi}, default=str), flush=True)
-    return 0 if out["ok"] else 1
+    ok = True
+    for part, fn in (("serve_app", serve_app), ("openai_app", openai_app)):
+        if args.part in (part, "both"):
+            out = fn(llm, prompts, want, device=device)
+            print(json.dumps({**out, "card": smi}, default=str), flush=True)
+            ok = ok and out["ok"]
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

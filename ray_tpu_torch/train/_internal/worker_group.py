@@ -179,7 +179,10 @@ def _loop_main(backend: str, blob: bytes, conn, inbox, spawned_at: float) -> Non
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    conn.send({"kind": "done", "rank": rank})
+    try:
+        conn.send({"kind": "done", "rank": rank})
+    except OSError:
+        pass  # the server went (its end of the inbox closed first): nobody reads it
     conn.close()
 
 

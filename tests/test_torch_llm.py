@@ -292,9 +292,12 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert REPO / "ray_tpu_torch" / "tune" / "search" / "gp_search.py" in files
     assert REPO / "ray_tpu_torch" / "data" / "execution.py" in files
     assert REPO / "ray_tpu_torch" / "data" / "dataset.py" in files
-    for name in ("api.py", "batching.py", "config.py", "controller.py", "deployment.py",
-                 "handle.py", "multiplex.py", "proxy.py", "replica.py", "streaming.py"):
+    for name in ("api.py", "asgi.py", "batching.py", "config.py", "controller.py",
+                 "deployment.py", "grpc_proxy.py", "handle.py", "multiplex.py", "proxy.py",
+                 "replica.py", "schema.py", "streaming.py"):
         assert REPO / "ray_tpu_torch" / "serve" / name in files
+    for name in ("openai_api.py", "builders.py"):
+        assert REPO / "ray_tpu_torch" / "llm" / name in files
     assert REPO / "ray_tpu_torch" / "tools" / "serve_bench.py" in files
     bad = []
     for path in files:
