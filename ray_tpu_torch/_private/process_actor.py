@@ -80,7 +80,7 @@ import traceback
 import weakref
 from typing import Callable, Optional
 
-from ray_tpu_torch._private.cards import Lease
+from ray_tpu_torch._private.cards import CardLedger, Lease, default_ledger
 from ray_tpu_torch._private.spawn_env import (end_process_group, kill_group_members,
                                               process_env, start_process)
 
@@ -377,11 +377,12 @@ def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: 
 # -- the parent -----------------------------------------------------------------
 
 
-def _reap(proc, conns, grace_s: float, group: bool = False) -> None:
+def _reap(proc, conns, grace_s: float, group: Optional[CardLedger] = None) -> None:
     """Terminate, join with a deadline, kill; close the pipes. ``group``:
-    the process leads a process group, which is ended whole first."""
-    if group:
-        end_process_group(proc.pid)
+    the process leads a process group, which is ended whole first, with
+    the leases its members hold in that ledger."""
+    if group is not None:
+        end_process_group(proc.pid, group)
     if proc.is_alive():
         proc.terminate()
         proc.join(grace_s)
@@ -489,8 +490,10 @@ class ProcessActor:
         self._link = _Link(self.name, self._proc, replies_r)
         self.ready = PendingResult(self, 0, "__init__")
         self._link.pending[0] = self.ready
+        # what the group spawns leases from the ledger in effect here (a
+        # Serve replica receives it), which its end waits on
         self._reaper = weakref.finalize(self, _reap, self._proc, (calls_w, replies_r),
-                                        KILL_GRACE_S, leads_group)
+                                        KILL_GRACE_S, default_ledger() if leads_group else None)
         if leads_group:
             _GROUP_LEADERS.add(self)
         threading.Thread(target=self._link.read_loop, name=f"replies-{self.name}",

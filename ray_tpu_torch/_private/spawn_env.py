@@ -9,8 +9,8 @@ can initialise CUDA or size an OpenMP pool, so the parent sets them around
 the host's card ledger (``_private/cards.py``) and held by the child
 (``start_process``). A process that spawns processes of its own and must
 not be outlived by them (a Tune trial, ``tune/tuner.py``) leads a process
-group (``lead_process_group``), which its parent ends whole
-(``end_process_group``).
+group (``lead_process_group``), which its parent ends whole, leases
+included (``end_process_group``).
 """
 
 from __future__ import annotations
@@ -151,15 +151,25 @@ def kill_group_members(pgid: int, but: int) -> None:
                 os.kill(pid, signal.SIGKILL)
 
 
-def end_process_group(pgid: int) -> list[int]:
+def end_process_group(pgid: int, ledger: Optional[CardLedger] = None) -> list[int]:
     """SIGKILL every process of the group that ``lead_process_group`` made
-    ``pgid`` lead, and wait up to ``GROUP_END_S`` for them to exit (their
-    leases with them). Returns the pids still alive at the deadline."""
+    ``pgid`` lead, and wait up to ``GROUP_END_S`` for them to exit and for
+    the leases they held in ``ledger`` (default: this process's) to be
+    free. A killed process's lease may outlast what ``/proc`` shows of it
+    (its lock is dropped when the kernel closes its last file, which on a
+    card's host can trail the process's exit), so the ledger itself is
+    read. Returns the pids still alive, or still holding a lease, at the
+    deadline."""
+    seen = {pgid, *_group_members(pgid)}
     with suppress(ProcessLookupError, PermissionError):
         os.killpg(pgid, signal.SIGKILL)
+    ledger = ledger or default_ledger()
     deadline = time.monotonic() + GROUP_END_S
-    left = _group_members(pgid)
-    while left and time.monotonic() < deadline:
-        time.sleep(0.02)
+    while True:
         left = _group_members(pgid)
-    return left
+        seen.update(left)
+        if not left:
+            left = sorted({h.pid for h in ledger.holders() if h.pid in seen})
+        if not left or time.monotonic() >= deadline:
+            return left
+        time.sleep(0.02)

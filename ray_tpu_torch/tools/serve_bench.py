@@ -776,9 +776,15 @@ def openai_app(llm_config, prompts: list, want: dict, device=None) -> dict:
                 get(gactor1.call("handle_request", "rank_counts"), timeout=120), n_layers)})
 
             # the gang's replica killed: its rank ends with its process group,
-            # and a new gang takes its place
+            # its lease with it, and a new gang takes its place
+            ranks = set(_group_members(gactor1.pid)) - {gactor1.pid}
             t_kill = time.perf_counter()
             os.kill(gactor1.pid, signal.SIGKILL)
+            _wait(lambda: not _group_members(gactor1.pid), 60, "the killed gang's rank gone")
+            out["gang_kill_ranks_gone_s"] = time.perf_counter() - t_kill
+            _wait(lambda: not any(h.pid in ranks for h in ledger.holders()), 60,
+                  "the killed gang's rank's lease free")
+            out["gang_kill_leases_free_s"] = time.perf_counter() - t_kill
             _wait(lambda: any(n != g1 for n, _ in _ready_replicas(ctrl, gang_name)), 600,
                   "the killed gang replaced")
             out["gang_replace_s"] = time.perf_counter() - t_kill
@@ -799,7 +805,9 @@ def openai_app(llm_config, prompts: list, want: dict, device=None) -> dict:
             for r in gang_rows:
                 r["startup_s"] = readies[r["replica"]] - starts[r["replica"]]
         finally:
+            t_shutdown = time.perf_counter()
             serve.shutdown()
+            out["shutdown_s"] = time.perf_counter() - t_shutdown
     holders_after = [str(h) for h in ledger.holders()]
     left = [p.pid for p in multiprocessing.active_children()
             if p.name.startswith("serve:")] + [q for pid in gang_pids for q in _group_members(pid)]

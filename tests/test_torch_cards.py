@@ -12,6 +12,9 @@ import multiprocessing
 import os
 import re
 import signal
+import subprocess
+import sys
+import threading
 import time
 
 import pytest
@@ -19,7 +22,8 @@ import torch
 
 from ray_tpu_torch._private.cards import CardLedger, LedgerError, use_ledger
 from ray_tpu_torch._private.process_actor import PendingResult, ProcessActor, get
-from ray_tpu_torch._private.spawn_env import assign_cards
+from ray_tpu_torch._private import spawn_env
+from ray_tpu_torch._private.spawn_env import assign_cards, end_process_group
 from ray_tpu_torch.rllib import LearnerGroup, RLModuleSpec
 from ray_tpu_torch.rllib.core import learner_group as lg
 from ray_tpu_torch.train import ScalingConfig
@@ -202,6 +206,34 @@ def test_kill_and_shutdown_leave_no_lease(ledger):
     finally:
         group.shutdown()
     assert ledger.holders() == [] and ledger.free().cpus == 8
+
+
+def test_ending_a_group_waits_for_its_leases(ledger, monkeypatch):
+    """``end_process_group`` returns once the group's leases are free, not
+    only once its processes are gone. Here the lock of the lease that the
+    group's leader holds is also held by a process outside the group, so
+    it outlasts the leader as a card host's kernel may make it outlast a
+    killed rank: past the deadline the leader's pid is returned; once that
+    lock goes, the group has ended."""
+    lease, = ledger.acquire([{"CPU": 1}], "group")
+    fd = lease.inheritable().fd
+    sleep = [sys.executable, "-c", "import time; time.sleep(120)"]
+    leader = subprocess.Popen(sleep, pass_fds=[fd], start_new_session=True)
+    other = subprocess.Popen(sleep, pass_fds=[fd])
+    lease.bind(leader.pid)
+    try:
+        monkeypatch.setattr(spawn_env, "GROUP_END_S", 0.3)
+        assert end_process_group(leader.pid, ledger) == [leader.pid]
+        assert [h.pid for h in ledger.holders()] == [leader.pid]
+        monkeypatch.undo()
+        t0 = time.monotonic()
+        threading.Timer(0.5, other.kill).start()
+        assert end_process_group(leader.pid, ledger) == []
+        assert time.monotonic() - t0 >= 0.5 and ledger.holders() == []
+    finally:
+        for p in (leader, other):
+            p.kill()
+            p.wait(30)
 
 
 def _wait_for_stop(config, conn, inbox, device):
