@@ -6,7 +6,9 @@ training path (dense and MoE, remat "full" and "dots"), its int8 weight
 path, the entry() twin, the Train layer's train -> checkpoint -> serve
 path, its elastic resizing on the host's card ledger and Tune's trials on
 it, Data's actor pools and Train ingest, Serve's runtime (replica
-processes, handles, the HTTP proxy, autoscaling), and the RL stack
+processes, handles, the HTTP proxy, autoscaling), ray_tpu_torch.util
+(placement groups, ActorPool, Queue, pubsub, metrics, tracing, the state
+API), and the RL stack
 (ray_tpu_torch.rllib), its runner and learner processes included.
 
 Run from the repository root on a machine with one CUDA card:
@@ -206,6 +208,22 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 and HTTP p50/p99 through the router, SSE TTFT, the
                 replica's start-up and engine build, the gang's start-up,
                 the seconds to replace the killed gang.
+ 15f. util     — ray_tpu_torch.util (tools/util_bench.py:util_actors):
+                placement_group([{"GPU": 0.5}] * 2, "STRICT_PACK") on the
+                card ledger; two engine actors placed in its bundles, each
+                building the batch phase's engine on its half card;
+                ActorPool.map of the batch phase's 32 prompts in blocks of
+                16; a Queue(maxsize=8) on a CPU actor from which one engine
+                actor pulls the first block. Every text equal to the batch
+                phase's; RMSNorm launches in each actor equal to its
+                engine's count; the actors' token counters merged by
+                state.cluster_metrics equal to the tokens generated; each
+                block's span under the driver's in state.timeline(); the 3
+                actors ALIVE in state.list_actors() and on the "actors"
+                channel; one killed (DEAD, its bundle still reserved);
+                remove_placement_group ends the other and no lease is left;
+                each actor's start-up, engine build and peak memory, tok/s,
+                the group's time to ready, the time to free after removal.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -2747,6 +2765,55 @@ def phase_openai_app(torch, card: str, serve: dict) -> dict:
     return out
 
 
+def phase_util(torch, card: str, batch: dict) -> dict:
+    """ray_tpu_torch.util on the port's own processes
+    (ray_tpu_torch.tools.util_bench.util_actors), through the entry points
+    a user calls: placement_group([{"GPU": 0.5}] * 2, "STRICT_PACK") on the
+    host's card ledger; two engine actors placed in its bundles
+    (PlacementGroupSchedulingStrategy), each building the batch phase's
+    engine (llama3.2-3b at full width and depth, seeded bf16 weights, the
+    fused RMSNorm, 16 slots x 1024, prefix caching off) on the half card
+    its bundle leases; ActorPool.map of the batch phase's 32 prompts in
+    blocks of 16, greedy, 32 tokens; a Queue(maxsize=8) on a CPU actor,
+    passed to one engine actor, which pulls the first block from it; a
+    metrics.Counter of output tokens in each actor and a tracing.span
+    around each block. Limits: every text (32 through the pool, 16 through
+    the queue) equal to the batch phase's for its prompt, in input order;
+    in each actor every decode step a graph replay and the RMSNorm
+    launches since its engine was built, counted in its own process, equal
+    to what its engine's counters give; the merged token counter
+    (state.cluster_metrics) equal to the tokens generated; each block's
+    span in state.timeline() under the driver's span; the 3 actors ALIVE
+    in state.list_actors() with their pids and the engines' card, the
+    bundles on the card in list_placement_groups(), ALIVE for each on the
+    "actors" channel; one engine actor killed: DEAD on the channel, its
+    bundle still reserved; remove_placement_group ends the other, and no
+    lease is left."""
+    from ray_tpu_torch.tools import data_bench as db
+    from ray_tpu_torch.tools import util_bench as ub
+
+    cfg = _serve_config({}, enable_prefix_caching=False)
+    if db.card_llm_config() != cfg:
+        raise AssertionError("util: data_bench's engine is not the batch phase's")
+    gc_collect(torch)  # the parent holds no model while the actors run
+    part = ub.util_actors(cfg, _batch_prompts(), BATCH_SAMPLING, batch["texts"])
+    emit({"phase": "util", "card": card, **part})
+    if not part["ok"]:
+        raise AssertionError(f"util: {part['failed_checks']}")
+    out = {"phase": "util", "card": card, "model": "llama3.2-3b",
+           "out_tok_per_s": part["out_tok_per_s"], "map_s": part["map_s"],
+           "actor_startup_s": [a["startup_s"] for a in part["actors"]],
+           "engine_build_s": [a["engine_build_s"] for a in part["actors"]],
+           "actor_peak_memory_gb": [a["peak_memory_gb"] for a in part["actors"]],
+           "group_ready_s": part["group_ready_s"], "actors_placed_s": part["actors_placed_s"],
+           "free_after_remove_s": part["free_after_remove_s"],
+           "texts_equal_batch_phase": part["texts_equal"],
+           "queue_texts_equal": part["queue_texts_equal"],
+           "merged_tokens": part["merged_tokens"], "launches": part["launches"]}
+    emit(out)
+    return out
+
+
 def emit_holders(phase: str) -> None:
     """The card ledger's live leases after a phase that spawns processes:
     a rank or actor that outlived its phase shows here, under its pid."""
@@ -2782,7 +2849,7 @@ def main() -> int:
     timings = {}
 
     spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "data", "serve_app",
-                "openai_app", "parallel", "rllib_remote"}
+                "openai_app", "util", "parallel", "rllib_remote"}
 
     def timed_phase(name, fn):
         t = time.perf_counter()
@@ -2819,6 +2886,7 @@ def main() -> int:
     data = timed_phase("data", lambda torch, card: phase_data(torch, card, batch))
     serve_app = timed_phase("serve_app", lambda torch, card: phase_serve_app(torch, card, serve))
     openai = timed_phase("openai_app", lambda torch, card: phase_openai_app(torch, card, serve))
+    util = timed_phase("util", lambda torch, card: phase_util(torch, card, batch))
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
@@ -2876,6 +2944,8 @@ def main() -> int:
                              # its gangs' rank processes, their own counters
                              "openai_app": openai["launches"]["openai_app"],
                              "gang_app": openai["launches"]["gang_app"],
+                             # the util phase's two placed engine actors, their own counters
+                             "util": util["launches"]["rmsnorm"],
                              # the gang's rank process, its own counters
                              "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],

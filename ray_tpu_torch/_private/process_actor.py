@@ -64,6 +64,17 @@ on it.
   group from the parent (``spawn_env.end_process_group``, as a Tune
   trial's group is ended). No process the actor spawned outlives it, and
   their leases end with them.
+- *Placement.* ``scheduling_strategy`` places the actor in a placement
+  group's bundle (``util/scheduling_strategies.py``): it runs under the
+  bundle's cards, holding a copy of the bundle's lease, and takes none of
+  its own.
+- *The record.* Each actor writes its state to this process's registry
+  (``_private/registry.py``): ``PENDING`` when started, ``ALIVE`` when its
+  constructor returns, ``DEAD`` when its process is seen gone or it is
+  killed, and each call's dispatch and end. Each call carries the
+  caller's trace context (``util/tracing.py``): a span opened in the
+  method parents under the caller's. The child's environment carries the
+  way back to this process (``_private/driver_link.py``).
 """
 
 from __future__ import annotations
@@ -77,12 +88,18 @@ import queue
 import threading
 import time
 import traceback
+import uuid
 import weakref
 from typing import Callable, Optional
 
+from ray_tpu_torch._private import driver_link
 from ray_tpu_torch._private.cards import CardLedger, Lease, default_ledger
+from ray_tpu_torch._private.registry import registry
 from ray_tpu_torch._private.spawn_env import (end_process_group, kill_group_members,
                                               process_env, start_process)
+from ray_tpu_torch.util import tracing
+from ray_tpu_torch.util.placement_group import placed_env
+from ray_tpu_torch.util.scheduling_strategies import resolve
 
 # the JAX package's deadline on a remote runner's sample
 # (ray_tpu/rllib/env/env_runner.py:405)
@@ -323,7 +340,14 @@ def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: 
     replies.send((0, "ok", None))
 
     def run(msg) -> None:
-        call_id, method, args, kwargs, stream = msg
+        call_id, method, args, kwargs, stream, ctx = msg
+        token = tracing.attach_context(ctx)
+        try:
+            call(call_id, method, args, kwargs, stream)
+        finally:
+            tracing.detach_context(token)
+
+    def call(call_id, method, args, kwargs, stream) -> None:
         fn = getattr(obj, method) if isinstance(method, str) else method
         if not stream:
             try:
@@ -398,8 +422,8 @@ class _Link:
     calls by id, and why the process is gone once it is. Holds no reference
     to the ``ProcessActor``, so a dropped handle is still collected."""
 
-    def __init__(self, name: str, proc, replies):
-        self.name, self.proc, self.replies = name, proc, replies
+    def __init__(self, name: str, proc, replies, actor_id: str):
+        self.name, self.proc, self.replies, self.actor_id = name, proc, replies, actor_id
         self.lock = threading.Lock()
         self.pending: dict = {}
         self.dead: Optional[str] = None
@@ -437,6 +461,7 @@ class _Link:
                 self.dead = why or (f"{self.name} (pid {self.proc.pid}) exited with code "
                                     f"{self.proc.exitcode}")
             pending, self.pending = list(self.pending.values()), {}
+        registry().set_state(self.actor_id, "DEAD", self.dead)
         for h in pending:
             err = ActorDiedError(f"{self.dead} before {h.method} returned")
             if isinstance(h, _StreamSink):
@@ -462,23 +487,33 @@ class ProcessActor:
     is the card ledger's lease it holds (its card), or None for a CPU
     process that holds nothing; ``max_concurrency`` the calls it runs at
     once (1: one at a time, in order); ``leads_group`` lets it spawn
-    processes of its own, which end with it."""
+    processes of its own, which end with it; ``scheduling_strategy``
+    places it (a placement group's bundle, in place of a lease)."""
 
     def __init__(self, cls, args: tuple = (), kwargs: Optional[dict] = None, *,
                  lease: Optional[Lease] = None, name: Optional[str] = None,
-                 max_concurrency: int = 1, leads_group: bool = False):
+                 max_concurrency: int = 1, leads_group: bool = False,
+                 scheduling_strategy=None):
         self.name = name or cls.__name__
+        self.actor_id = uuid.uuid4().hex
+        self._class_name = getattr(cls, "__name__", str(cls))
         try:
+            placed = resolve(scheduling_strategy, lease)
             blob = _dumps((cls, tuple(args), dict(kwargs or {})),
                           f"{self.name}'s class and arguments")
             mp = multiprocessing.get_context("spawn")
             calls_r, calls_w = mp.Pipe(duplex=False)
             replies_r, replies_w = mp.Pipe(duplex=False)
-            cards = lease.cards if lease is not None else []
+            held = placed[2] if placed else lease
+            cards = held.cards if held is not None else []
+            env = {**process_env(cards, 1), **driver_link.child_env()}
+            if placed:
+                env.update(placed_env(scheduling_strategy.placement_group, placed[1]))
             self._proc = start_process(
                 mp, _actor_main,
                 (blob, calls_r, replies_w, not cards, max(1, max_concurrency), leads_group),
-                name=self.name, env=process_env(cards, 1), lease=lease, daemon=not leads_group)
+                name=self.name, env=env, lease=held, daemon=not leads_group,
+                share=placed is not None)
         finally:
             if lease is not None:
                 lease.release()  # a no-op once the child holds it
@@ -487,9 +522,19 @@ class ProcessActor:
         self._calls = calls_w
         self._send_lock = threading.Lock()
         self._next_id = 1
-        self._link = _Link(self.name, self._proc, replies_r)
+        self._link = _Link(self.name, self._proc, replies_r, self.actor_id)
         self.ready = PendingResult(self, 0, "__init__")
         self._link.pending[0] = self.ready
+        reg = registry()
+        reg.started(self.actor_id, kind="actor", name=self.name, class_name=self._class_name,
+                    pid=self._proc.pid, cards=cards, cpu=held.cpu if held is not None else 0.0,
+                    state="PENDING", handle=self,
+                    placement_group_id=placed[0].id if placed else None,
+                    bundle_index=placed[1] if placed else None)
+        if placed:
+            placed[0].add_actor(placed[1], self.actor_id)
+        self._track(0, f"{self._class_name}.__init__", self.ready)
+        self.ready.add_done_callback(_on_ready)
         # what the group spawns leases from the ledger in effect here (a
         # Serve replica receives it), which its end waits on
         self._reaper = weakref.finalize(self, _reap, self._proc, (calls_w, replies_r),
@@ -520,6 +565,14 @@ class ProcessActor:
         weakref.finalize(h, _cancel_later, weakref.ref(self), h._sink)
         return h
 
+    def _track(self, call_id: int, name: str, h) -> None:
+        """The call's DISPATCHED event now, and its end's when ``h`` ends
+        (a stream's sink carries no verdict: FINISHED)."""
+        reg, task_id = registry(), f"{self.actor_id}:{call_id}"
+        reg.task_event(task_id, name, "DISPATCHED", worker_id=self.actor_id)
+        h.add_done_callback(lambda r: reg.task_event(
+            task_id, name, "FAILED" if getattr(r, "_ok", True) is False else "FINISHED"))
+
     def _send(self, kind, method, args, kwargs):
         name = method if isinstance(method, str) else method.__name__
         stream = kind is StreamResult
@@ -527,7 +580,9 @@ class ProcessActor:
             call_id = self._next_id
             self._next_id += 1
         h = kind(self, call_id, name)
-        msg = _dumps((call_id, method, args, kwargs, stream), f"the arguments of {self.name}.{name}")
+        msg = _dumps((call_id, method, args, kwargs, stream, tracing.current_context()),
+                     f"the arguments of {self.name}.{name}")
+        self._track(call_id, f"{self._class_name}.{name}" if isinstance(method, str) else name, h)
         link = self._link
         with link.lock:
             dead = link.dead
@@ -567,6 +622,16 @@ class ProcessActor:
     def __repr__(self):
         state = "alive" if self.is_alive() else "dead"
         return f"<ProcessActor {self.name} pid={self.pid} {state}>"
+
+
+def _on_ready(result: PendingResult) -> None:
+    """The constructor's end: ALIVE, or DEAD with its error's last line."""
+    if result._ok:
+        registry().set_state(result.actor.actor_id, "ALIVE")
+        return
+    lines = str(result._value).strip().splitlines()
+    registry().set_state(result.actor.actor_id, "DEAD",
+                         lines[-1] if lines else "its constructor raised")
 
 
 def _cancel_later(actor_ref, sink: _StreamSink) -> None:

@@ -72,19 +72,21 @@ def assign_cards(n: int, per: float, what: str, *, cpu: float = 0.0,
 
 
 def start_process(ctx, target, args: tuple, *, name: str, env: dict,
-                  lease: Optional[Lease] = None, daemon: bool = False):
+                  lease: Optional[Lease] = None, daemon: bool = False, share: bool = False):
     """Spawn ``target(*args)`` (a ``spawn`` context's process) with ``env``
     set around its start. With a ``lease``, the child receives its
     descriptor and holds it for its life: the parent's copy is closed once
     the child has started (``Lease.bind``), so the lease ends with the
-    child, however it ends."""
+    child, however it ends. With ``share`` the parent keeps its copy too
+    (a placement group's bundle): the lease ends with the last holder, or
+    when the parent releases it."""
     if lease is not None:
         args = (lease.inheritable(), target, *args)
         target = _run_holding
     p = ctx.Process(target=target, name=name, args=args, daemon=daemon)
     with environ(env):
         p.start()
-    if lease is not None:
+    if lease is not None and not share:
         lease.bind(p.pid)
     return p
 

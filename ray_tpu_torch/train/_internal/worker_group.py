@@ -43,6 +43,10 @@ context (CUDA forbids ``fork``), one process per rank:
   ``send(rank, msg)`` writes to it, and the rank's loop reads its messages
   in the order they were sent. One thread sending to every rank in turn
   gives every rank the same sequence.
+- *The record.* The group registers its ranks in this process's registry
+  (``_private/registry.py``, kind ``"rank"``): ``ALIVE`` when started,
+  ``DEAD`` when seen exited or stopped. Their environment carries the way
+  back to this process (``_private/driver_link.py``).
 """
 
 from __future__ import annotations
@@ -61,7 +65,9 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch._private import driver_link
 from ray_tpu_torch._private.cards import CardLedger, Lease, default_ledger, use_ledger
+from ray_tpu_torch._private.registry import registry
 from ray_tpu_torch._private.spawn_env import (assign_cards, lead_process_group, process_env,
                                               start_process)
 from ray_tpu_torch.accelerator import GPUAcceleratorManager
@@ -200,6 +206,7 @@ class WorkerGroup:
         self._inboxes: dict[int, Any] = {}
         self._eof: set[int] = set()
         self._store = None
+        self._ids: list[str] = []  # each rank's registry id
 
     def start(self, train_fn, config: Optional[dict], storage_dir: str,
               latest_checkpoint_path: Optional[str], shards: list[dict],
@@ -248,7 +255,8 @@ class WorkerGroup:
                 cards = lease.cards if lease is not None else []
                 env = {"RAY_TPU_WORLD_SIZE": str(n), "RAY_TPU_RANK": str(rank),
                        "RAY_TPU_COORDINATOR": coordinator,
-                       **process_env(cards, int(lease.cpu) if lease and lease.cpu else threads)}
+                       **process_env(cards, int(lease.cpu) if lease and lease.cpu else threads),
+                       **driver_link.child_env()}
                 recv, send = mp.Pipe(duplex=False)
                 inbox = outbox = None
                 if inbound:
@@ -262,6 +270,11 @@ class WorkerGroup:
                     self._inboxes[rank] = outbox
                 self.procs.append(p)
                 self._conns[rank] = recv
+                rank_id = f"{self.experiment_name}-{self.trial_id or 'group'}-{p.pid}-{rank}"
+                registry().started(rank_id, kind="rank", name=p.name,
+                                   class_name=target.__name__, pid=p.pid, cards=cards,
+                                   cpu=lease.cpu if lease is not None else 0.0, state="ALIVE")
+                self._ids.append(rank_id)
         finally:
             for lease in leases:  # those no rank took (a failed start)
                 if lease is not None:
@@ -297,7 +310,10 @@ class WorkerGroup:
                     msgs.append(conn.recv())
             except EOFError:
                 self._eof.add(r)
-        return msgs, {r: code for r, code in exited.items() if r in self._eof}
+        ended = {r: code for r, code in exited.items() if r in self._eof}
+        for r, code in ended.items():
+            registry().set_state(self._ids[r], "DEAD", f"exited with code {code}")
+        return msgs, ended
 
     def shutdown(self, wait_s: float = 0.0) -> None:
         """Give the ranks ``wait_s`` to exit on their own, then terminate,
@@ -315,6 +331,8 @@ class WorkerGroup:
             if p.is_alive():
                 p.kill()
                 p.join()
+        for rank_id, p in zip(self._ids, self.procs):
+            registry().set_state(rank_id, "DEAD", f"stopped (exit code {p.exitcode})")
         for conn in list(self._conns.values()) + list(self._inboxes.values()):
             conn.close()
         self._conns = {}

@@ -680,19 +680,25 @@ def test_rolling_update_with_drain(jserve, port):
         h = s.run(d.bind("v1"), name="roll")
         assert h.remote().result(timeout_s=120) == "v1"
         s.run(d.bind("v2"), name="roll")
+
+        def st():
+            return s.status()["applications"]["roll"]["deployments"]["Versioned"]
+
+        # the rollout has ended once v2 answers and the deployment reads
+        # RUNNING (every replica on the new version) with 2 replicas: a v1
+        # replica still in the set (not yet retired) could answer otherwise
         deadline = time.monotonic() + 120
         while time.monotonic() < deadline:
             if h.remote().result(timeout_s=60) == "v2" and all(
-                    h.remote().result(timeout_s=60) == "v2" for _ in range(6)):
+                    h.remote().result(timeout_s=60) == "v2" for _ in range(6)) and (
+                    st()["status"], st()["replicas"]) == ("RUNNING", 2):
                 break
             time.sleep(0.5)
         assert all(h.remote().result(timeout_s=60) == "v2" for _ in range(4)), side
-        st = s.status()["applications"]["roll"]["deployments"]["Versioned"]
         deadline = time.monotonic() + 60
-        while (st["status"], st["replicas"]) != ("RUNNING", 2) and time.monotonic() < deadline:
+        while (st()["status"], st()["replicas"]) != ("RUNNING", 2) and time.monotonic() < deadline:
             time.sleep(0.2)
-            st = s.status()["applications"]["roll"]["deployments"]["Versioned"]
-        assert (st["status"], st["replicas"]) == ("RUNNING", 2), side
+        assert (st()["status"], st()["replicas"]) == ("RUNNING", 2), side
         s.delete("roll")
     stops = [e for e in _controller().events if e[1] == "Versioned" and e[2] == "stop"]
     assert len(stops) == 2  # both v1 replicas drained and stopped

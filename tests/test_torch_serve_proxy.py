@@ -77,6 +77,23 @@ class Sleeper:
         return self.reply
 
 
+class Gated:
+    """Holds each request while the file ``gate`` exists (at most
+    ``GATE_HOLD_S``), then sleeps ``seconds``: a test closes the gate to
+    keep every admitted request in flight until all of its requests have
+    reached the proxy."""
+
+    def __init__(self, gate, seconds, reply):
+        self.gate, self.seconds, self.reply = gate, seconds, reply
+
+    def __call__(self, request):
+        deadline = time.monotonic() + GATE_HOLD_S
+        while os.path.exists(self.gate) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(self.seconds)
+        return self.reply
+
+
 class MaybeSlow:
     def __init__(self, flag):
         try:
@@ -103,6 +120,7 @@ def noop(request):
 
 
 BUDGET = 8
+GATE_HOLD_S = 30.0
 
 
 def _apps(s, flag):
@@ -113,8 +131,8 @@ def _apps(s, flag):
         ("null", "/null"): dep(fire_and_forget).bind(),
         ("sse", "/sse"): dep(SSE).bind(),
         ("bad", "/bad"): dep(Bad).bind(),
-        ("slow", "/slow"): dep(Sleeper, name="Slow", max_ongoing_requests=BUDGET).bind(
-            0.2, {"ok": True}),
+        ("slow", "/slow"): dep(Gated, name="Slow", max_ongoing_requests=BUDGET).bind(
+            flag + ".gate", 0.2, {"ok": True}),
         ("bounded", "/bounded"): dep(Sleeper, name="Bounded", max_ongoing_requests=16,
                                      max_queued_requests=3).bind(0.5, "ok"),
         ("work", "/work"): dep(Sleeper, name="Work", max_ongoing_requests=16).bind(1.0, "done"),
@@ -144,7 +162,7 @@ def port(tmp_path_factory):
             from ray_tpu_torch.serve import api
 
             yield types.SimpleNamespace(serve=ts, handles=handles, ledger=ledger,
-                                        controller=api._controller)
+                                        controller=api._controller, flag=flag)
         finally:
             ts.shutdown()
         deadline = time.monotonic() + 10
@@ -247,6 +265,48 @@ def _stats(port: int) -> dict:
         return json.loads(r.read())
 
 
+def _gated_round(port: int, gate: str, path: str, n: int, timeout: float = 60.0) -> list:
+    """``n`` concurrent requests to ``path`` with the gate closed, opened
+    once all ``n`` have reached the proxy (admitted or shed), so that every
+    admitted one is still in flight when the last arrives; then the
+    proxy's in-flight count is waited back to 0 (a handler releases its
+    admission after writing its reply). An admitted request's elapsed time
+    counts from the later of its start and the gate's opening: the hold is
+    the test's, not the proxy's."""
+    before = _stats(port)
+    open(gate, "w").close()
+    out, lock = [], threading.Lock()
+    opened = []
+
+    def run():
+        t0 = time.monotonic()
+        code, body, retry_after, elapsed = _get(port, path, timeout=timeout)
+        if code == 200:
+            elapsed = time.monotonic() - max(t0, opened[0])
+        with lock:
+            out.append((code, body, retry_after, elapsed))
+
+    threads = [threading.Thread(target=run) for _ in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + GATE_HOLD_S
+        while time.monotonic() < deadline:
+            now = _stats(port)
+            if (now["accepted"] + now["shed"]) - (before["accepted"] + before["shed"]) >= n:
+                break
+            time.sleep(0.01)
+    finally:
+        opened.append(time.monotonic())
+        os.unlink(gate)
+    for t in threads:
+        t.join()
+    deadline = time.monotonic() + 10.0
+    while _stats(port)["inflight"] and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return out
+
+
 def _concurrent(fn, n: int) -> list:
     out, lock = [], threading.Lock()
 
@@ -344,15 +404,17 @@ def test_admission_caps_math():
 
 
 def test_shed_at_overload_returns_429_with_retry_after(port, proxies, jax_teardown):
-    _, _, jport = _jax(config={"serve_max_inflight_per_proxy": BUDGET}, only=("slow",))
+    _, _, jport = _jax(config={"serve_max_inflight_per_proxy": BUDGET}, flag=port.flag,
+                       only=("slow",))
     pport = proxies(serve_max_inflight_per_proxy=BUDGET).port
     _ready(port, "Slow")
+    gate = port.flag + ".gate"
     out = {}
     for side, p in (("jax", jport), ("port", pport)):
-        base = _concurrent(lambda i: _get(p, "/slow/"), BUDGET)
+        base = _gated_round(p, gate, "/slow/", BUDGET)
         assert all(c == 200 for c, *_ in base)
         base_p99 = sorted(e for *_, e in base)[-1]
-        results = _concurrent(lambda i: _get(p, "/slow/", timeout=30), 2 * BUDGET)
+        results = _gated_round(p, gate, "/slow/", 2 * BUDGET, timeout=30)
         codes = collections.Counter(c for c, *_ in results)
         sheds = [r for r in results if r[0] == 429]
         assert all(ra is not None and float(ra) > 0 for _, _, ra, _ in sheds)
