@@ -8,7 +8,8 @@ path, its elastic resizing on the host's card ledger and Tune's trials on
 it, Data's actor pools and Train ingest, Serve's runtime (replica
 processes, handles, the HTTP proxy, autoscaling), ray_tpu_torch.util
 (placement groups, ActorPool, Queue, pubsub, metrics, tracing, the state
-API), and the RL stack
+API), compiled DAGs over shared-memory channels with internal_kv and the
+dashboard, job submission, and the RL stack
 (ray_tpu_torch.rllib), its runner and learner processes included.
 
 Run from the repository root on a machine with one CUDA card:
@@ -224,6 +225,35 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 remove_placement_group ends the other and no lease is left;
                 each actor's start-up, engine build and peak memory, tok/s,
                 the group's time to ready, the time to free after removal.
+ 15g. dag     — compiled DAGs (tools/dag_bench.py:dag_actors): two engine
+                actors on half-card leases, each building the batch phase's
+                engine, in the graph x = a.generate(inp), [x, b.generate(x)]
+                (stage 2 continues from stage 1's texts), over the batch
+                phase's 32 prompts in blocks of 16: eager, compiled (shared-
+                memory channels under /dev/shm, a loop thread in each actor)
+                twice, eager; one block straight to a with the loops idle and
+                after teardown, 3 turns each (the idle loop's cost); a chain
+                of two CPU actors, eager and compiled in turns (µs a round
+                trip); the dashboard (start_dashboard(port=0)) read over HTTP
+                and an internal_kv counter kept from inside stage 1's actor.
+                Limits: stage 1's
+                texts equal to the batch phase's, stage 2's equal across the
+                four runs; every decode step a graph replay, RMSNorm launches in
+                each actor equal to its engine's count; /api/actors shows both
+                engines ALIVE on the card, /api/stacks each one's dag-loop
+                thread, /api/logs one entry an actor, /metrics non-empty; the
+                KV counter equal to stage 1's rows; after teardown both
+                engines answer and no channel file is left; no lease after.
+ 15h. jobs    — job submission (tools/jobs_bench.py:jobs_part): a port
+                driver submitted with JobSubmissionClient().submit_job, whose
+                engine actor on a half-card lease runs the batch phase's first
+                16 prompts, and a job holding a half-card lease until
+                stop_job. Limits: the first job RUNNING then SUCCEEDED, its
+                log (get_job_logs and tail_job_logs) holding the batch
+                phase's texts, its engine's decode steps graph replays and
+                RMSNorm launches equal to its count; the second STOPPED, its
+                process group gone, no lease; a second JobManager on the
+                same log directory lists both.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -299,7 +329,10 @@ L_3B = 28
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, written whole (the log monitor's thread prints the
+    children's lines to this stream too)."""
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def phase_kernels(torch, card: str) -> dict:
@@ -2814,6 +2847,89 @@ def phase_util(torch, card: str, batch: dict) -> dict:
     return out
 
 
+def phase_dag(torch, card: str, batch: dict) -> dict:
+    """Compiled DAGs on the port's own processes
+    (ray_tpu_torch.tools.dag_bench.dag_actors), through the entry points a
+    user calls: two engine actors, each on a half-card lease
+    (spawn_env.assign_cards) building the batch phase's engine (llama3.2-3b
+    at full width and depth, seeded bf16 weights, the fused RMSNorm, 16
+    slots x 1024, prefix caching off), bound as x = a.bind("generate", inp,
+    ...), MultiOutputNode([x, b.bind("generate", x, ...)]); the batch
+    phase's 32 prompts in blocks of 16, greedy, 32 tokens, after a warm-up
+    block, in four runs: through dag.execute, twice through
+    dag.experimental_compile() (a channel under /dev/shm an edge, a loop
+    thread in each actor), through dag.execute again. Limits: stage 1's
+    texts equal to the batch phase's for their prompts in every run; stage
+    2's equal to the first eager run's in every run; in each actor every decode step a
+    graph replay and the RMSNorm launches since its engine was built equal
+    to what its engine's counters give; the dashboard's /api/actors shows
+    both ALIVE on the card, /api/stacks each one's dag-loop thread,
+    /api/logs one entry for each of the phase's four actors, /metrics
+    non-empty; the internal_kv counter kept in stage 1's actor equal to its
+    rows; after teardown both actors answer a normal call and none of the
+    DAG's channel files is left; no lease after the kill. Reported: the
+    actors' start-up, engine build and peak memory, tok/s eager and
+    compiled, the idle loop's cost (a block with the loops idle against
+    one after teardown), the CPU chain's round trip compiled and eager
+    (median and 90th percentile of each of four turns)."""
+    from ray_tpu_torch.tools import dag_bench
+    from ray_tpu_torch.tools import data_bench as db
+
+    cfg = _serve_config({}, enable_prefix_caching=False)
+    if db.card_llm_config() != cfg:
+        raise AssertionError("dag: data_bench's engine is not the batch phase's")
+    gc_collect(torch)  # the parent holds no model while the actors run
+    part = dag_bench.dag_actors(cfg, _batch_prompts(), BATCH_SAMPLING, batch["texts"])
+    emit({"phase": "dag", "card": card, **part})
+    if not part["ok"]:
+        raise AssertionError(f"dag: {part['failed_checks']}")
+    out = {"phase": "dag", "card": card, "model": "llama3.2-3b",
+           "eager_out_tok_per_s": part["eager_out_tok_per_s"],
+           "compiled_out_tok_per_s": part["compiled_out_tok_per_s"],
+           "idle_loop_tok_per_s": part["idle_loop_tok_per_s"],
+           "no_loop_tok_per_s": part["no_loop_tok_per_s"], "idle_loop_cost": part["idle_loop_cost"],
+           "chain_eager_us": part["chain_eager_us"], "chain_compiled_us": part["chain_compiled_us"],
+           "host_loadavg": part["host_loadavg"],
+           "compile_s": part["compile_s"], "actors_ready_s": part["actors_ready_s"],
+           "actor_startup_s": [a["startup_s"] for a in part["actors"]],
+           "engine_build_s": [a["engine_build_s"] for a in part["actors"]],
+           "actor_peak_memory_gb": [a["peak_memory_gb"] for a in part["actors"]],
+           "stage1_equal_batch_phase": part["stage1_equal_compiled"],
+           "stage2_equal_first_eager": part["stage2_equal_first_eager"],
+           "launches": part["launches"]}
+    emit(out)
+    return out
+
+
+def phase_jobs(torch, card: str, batch: dict) -> dict:
+    """Job submission on the port's own processes
+    (ray_tpu_torch.tools.jobs_bench.jobs_part), through the entry points a
+    user calls: JobSubmissionClient().submit_job of a port driver ("python
+    -m ray_tpu_torch.tools.jobs_bench --entrypoint ..."), whose engine
+    actor on a half-card lease builds the batch phase's engine and runs the
+    batch phase's first 16 prompts in one block, greedy, 32 tokens; and of
+    a job whose actor holds a half-card lease until stop_job. Limits: the
+    first job RUNNING then SUCCEEDED, its log (get_job_logs and
+    tail_job_logs) holding each prompt's text equal to the batch phase's,
+    in its engine actor every decode step a graph replay and the RMSNorm
+    launches equal to its engine's count; the second job STOPPED, its
+    process group gone and no lease in the ledger; a second JobManager on
+    the same log directory lists both."""
+    from ray_tpu_torch.tools import jobs_bench
+
+    gc_collect(torch)
+    part = jobs_bench.jobs_part(_batch_prompts()[:16], batch["texts"][:16])
+    emit({"phase": "jobs", "card": card, **part})
+    if not part["ok"]:
+        raise AssertionError(f"jobs: {part['failed_checks']}")
+    out = {"phase": "jobs", "card": card, "model": "llama3.2-3b", "run_s": part["run_s"],
+           "hold_s": part["hold_s"], "stop_s": part["stop_s"],
+           "engine_build_s": part["engine_build_s"], "peak_memory_gb": part["peak_memory_gb"],
+           "texts_equal_batch_phase": part["texts_equal"], "launches": part["launches"]}
+    emit(out)
+    return out
+
+
 def emit_holders(phase: str) -> None:
     """The card ledger's live leases after a phase that spawns processes:
     a rank or actor that outlived its phase shows here, under its pid."""
@@ -2830,6 +2946,7 @@ def main() -> int:
         return 2
     import ray_tpu_torch  # noqa: F401 — fails here outside a checkout of the repo
     from ray_tpu_torch._native import build
+    from ray_tpu_torch._private import log_capture
     from ray_tpu_torch.tools.decode_profile import card as nvidia_smi
 
     smi = nvidia_smi()
@@ -2849,7 +2966,7 @@ def main() -> int:
     timings = {}
 
     spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "data", "serve_app",
-                "openai_app", "util", "parallel", "rllib_remote"}
+                "openai_app", "util", "dag", "jobs", "parallel", "rllib_remote"}
 
     def timed_phase(name, fn):
         t = time.perf_counter()
@@ -2887,11 +3004,14 @@ def main() -> int:
     serve_app = timed_phase("serve_app", lambda torch, card: phase_serve_app(torch, card, serve))
     openai = timed_phase("openai_app", lambda torch, card: phase_openai_app(torch, card, serve))
     util = timed_phase("util", lambda torch, card: phase_util(torch, card, batch))
+    dag = timed_phase("dag", lambda torch, card: phase_dag(torch, card, batch))
+    jobs = timed_phase("jobs", lambda torch, card: phase_jobs(torch, card, batch))
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
     rllib_remote = timed_phase("rllib_remote", phase_rllib_remote)
     emit({"phase": "timings", "seconds": timings, "build_seconds": build_s})
+    log_capture.flush()  # the children's last lines, before the summary lines
 
     decode = next(r for r in k["rows"] if r["case"] == "decode")
     fused = k["fused"]
@@ -2946,6 +3066,10 @@ def main() -> int:
                              "gang_app": openai["launches"]["gang_app"],
                              # the util phase's two placed engine actors, their own counters
                              "util": util["launches"]["rmsnorm"],
+                             # the dag phase's two engine actors, their own counters
+                             "dag": dag["launches"]["rmsnorm"],
+                             # the jobs phase's engine actor, spawned by the job's driver
+                             "jobs": jobs["launches"]["rmsnorm"],
                              # the gang's rank process, its own counters
                              "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],
@@ -3018,7 +3142,7 @@ def main() -> int:
         **({"library_bit_equal": mlp_up[key]["library_bit_equal"]} if "library_us" in mlp_up[key]
            else {"library_note": "no single PyTorch call computes per-row absmax int8 quantization"}),
     } for name, key, replaces, err in quant_kernels]})
-    print(smi, flush=True)
+    sys.stdout.write(smi + "\n")
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -12,7 +12,8 @@ their environment (``child_env``). A child reaches its spawner through it
   never carrying a copy of the items);
 - the event channels (``util/pubsub.py``);
 - the state API and placement-group queries (``util/state/api.py``,
-  ``util/placement_group.py``).
+  ``util/placement_group.py``);
+- the internal KV table (``experimental/internal_kv.py``).
 
 The spawner answers each connection on a thread of its own, one request at
 a time; a child opens one connection a thread, so a long poll holds only
@@ -77,8 +78,14 @@ def _state(name: str, args: tuple, kwargs: dict):
     return driver_function(name)(*args, **kwargs)
 
 
+def _kv(op: str, namespace: str, arg):
+    from ray_tpu_torch.experimental.internal_kv import driver_op
+
+    return driver_op(op, namespace, arg)
+
+
 _OPS = {"actor_call": _actor_call, "actor_kill": _actor_kill, "publish": _publish,
-        "poll": _poll, "group": _group, "state": _state}
+        "poll": _poll, "group": _group, "state": _state, "kv": _kv}
 
 
 class _Server:

@@ -36,6 +36,12 @@ on it.
   ``@serve.batch`` sees calls together and a health check never waits
   behind a full replica). A reader thread in the child keeps taking calls
   while methods run, so a large call never waits on a large reply.
+- *On the object.* ``call(OnInstance(fn), ...)`` runs a module-level
+  ``fn(obj, ...)`` on the hosted object (a compiled DAG starts its loop
+  thread this way); ``bind("method", ...)`` makes a DAG node
+  (``ray_tpu_torch.dag``); ``stacks()`` returns every thread's stack in
+  the process, answered by the child's reader thread, so a running call
+  does not hold it up.
 - *Streams.* ``call_stream`` runs a generator method and sends each chunk
   under the call's id as it is produced, then an end marker or the error.
   The producer runs at most ``STREAM_WINDOW`` chunks ahead of the consumer
@@ -74,17 +80,21 @@ on it.
   killed, and each call's dispatch and end. Each call carries the
   caller's trace context (``util/tracing.py``): a span opened in the
   method parents under the caller's. The child's environment carries the
-  way back to this process (``_private/driver_link.py``).
+  way back to this process (``_private/driver_link.py``), and its stdout
+  and stderr go to the session's log files under its actor id
+  (``_private/log_capture.py``), which the driver tails to its console.
 """
 
 from __future__ import annotations
 
 import atexit
+import functools
 import multiprocessing
 import multiprocessing.util  # noqa: F401 — registers its exit hook before this module's
 import os
 import pickle
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -144,13 +154,14 @@ def require_picklable(obj, what: str) -> None:
     _dumps(obj, what)
 
 
-class PendingResult:
-    """One call's result, filled in when its reply arrives."""
+class Result:
+    """A value that arrives later: ``done``, then a value or an error.
+    ``get`` and ``wait`` take any ``Result``; one whose arrival the caller
+    drives (a compiled DAG's) has a ``_drain(timeout)``."""
 
-    __slots__ = ("actor", "call_id", "method", "done", "_ok", "_value", "_callbacks")
+    __slots__ = ("done", "_ok", "_value", "_callbacks")
 
-    def __init__(self, actor: "ProcessActor", call_id: int, method: str):
-        self.actor, self.call_id, self.method = actor, call_id, method
+    def __init__(self):
         self.done, self._ok, self._value = False, False, None
         self._callbacks: list = []
 
@@ -177,6 +188,16 @@ class PendingResult:
         if not self._ok:
             raise self._value
         return self._value
+
+
+class PendingResult(Result):
+    """One call's result, filled in when its reply arrives."""
+
+    __slots__ = ("actor", "call_id", "method")
+
+    def __init__(self, actor: "ProcessActor", call_id: int, method: str):
+        super().__init__()
+        self.actor, self.call_id, self.method = actor, call_id, method
 
     def __repr__(self):
         state = "done" if self.done else "pending"
@@ -279,6 +300,29 @@ class StreamResult:
 # -- the child ------------------------------------------------------------------
 
 
+class OnInstance:
+    """A module-level function sent as a call that runs on the hosted
+    object: ``fn(obj, *args, **kwargs)`` (the reference's ``__ray_call__``,
+    ``ray_tpu/actor.py:124``). A compiled DAG starts its loop this way."""
+
+    def __init__(self, fn: Callable, name: Optional[str] = None):
+        self.fn = fn
+        self.__name__ = name or fn.__name__
+
+    def __reduce__(self):
+        return (OnInstance, (self.fn, self.__name__))
+
+
+def dump_stacks() -> str:
+    """Every thread's Python stack in this process, each under its name."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    parts = [f"pid={os.getpid()}"]
+    for tid, frame in sorted(sys._current_frames().items()):
+        parts.append(f"\n--- thread {names.get(tid, '?')} (ident {tid}) ---\n"
+                     + "".join(traceback.format_stack(frame)))
+    return "".join(parts)
+
+
 def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: int = 1,
                 leads_group: bool = False) -> None:
     """The child's body: build the object, then run calls until the parent
@@ -309,7 +353,9 @@ def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: 
         try:
             while True:
                 msg = pickle.loads(calls.recv_bytes())
-                if msg[0] == "ack":
+                if msg[0] == "stacks":
+                    send((msg[1], "ok", dump_stacks()))
+                elif msg[0] == "ack":
                     with streams_lock:
                         s = streams.get(msg[1])
                     if s is not None:
@@ -348,7 +394,12 @@ def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: 
             tracing.detach_context(token)
 
     def call(call_id, method, args, kwargs, stream) -> None:
-        fn = getattr(obj, method) if isinstance(method, str) else method
+        if isinstance(method, str):
+            fn = getattr(obj, method)
+        elif isinstance(method, OnInstance):
+            fn = functools.partial(method.fn, obj)
+        else:
+            fn = method
         if not stream:
             try:
                 send((call_id, "ok", fn(*args, **kwargs)))
@@ -401,18 +452,31 @@ def _actor_main(blob: bytes, calls, replies, one_thread: bool, max_concurrency: 
 # -- the parent -----------------------------------------------------------------
 
 
+def _exit_code(proc, timeout: float) -> Optional[int]:
+    """``proc``'s exit code, waiting up to ``timeout`` for it to exit.
+    Another thread may reap the process first (``Process.start`` and
+    ``active_children`` poll every child, and so does ``is_alive``): this
+    thread's ``waitpid`` then fails with ECHILD and ``join`` returns before
+    the reaper has stored the code on the ``Popen`` both share, so the code
+    is read again until it lands."""
+    deadline = time.monotonic() + timeout
+    proc.join(timeout)
+    while proc.exitcode is None and time.monotonic() < deadline:
+        time.sleep(0.001)
+    return proc.exitcode
+
+
 def _reap(proc, conns, grace_s: float, group: Optional[CardLedger] = None) -> None:
     """Terminate, join with a deadline, kill; close the pipes. ``group``:
     the process leads a process group, which is ended whole first, with
     the leases its members hold in that ledger."""
     if group is not None:
         end_process_group(proc.pid, group)
-    if proc.is_alive():
+    if proc.exitcode is None:
         proc.terminate()
-        proc.join(grace_s)
-    if proc.is_alive():
-        proc.kill()
-        proc.join(grace_s)
+        if _exit_code(proc, grace_s) is None:
+            proc.kill()
+            _exit_code(proc, grace_s)
     for c in conns:
         c.close()
 
@@ -452,14 +516,15 @@ class _Link:
                 h._end(value if kind == "err" else None)
             else:
                 h._set(kind == "ok", value)
-        self.proc.join(KILL_GRACE_S)  # the pipe closed: the process is ending
-        self.mark_dead()
+        self.mark_dead()  # the pipe closed: the process is ending
 
     def mark_dead(self, why: Optional[str] = None) -> None:
+        if why is None:
+            why = (f"{self.name} (pid {self.proc.pid}) exited with code "
+                   f"{_exit_code(self.proc, KILL_GRACE_S)}")
         with self.lock:
             if self.dead is None:
-                self.dead = why or (f"{self.name} (pid {self.proc.pid}) exited with code "
-                                    f"{self.proc.exitcode}")
+                self.dead = why
             pending, self.pending = list(self.pending.values()), {}
         registry().set_state(self.actor_id, "DEAD", self.dead)
         for h in pending:
@@ -513,7 +578,7 @@ class ProcessActor:
                 mp, _actor_main,
                 (blob, calls_r, replies_w, not cards, max(1, max_concurrency), leads_group),
                 name=self.name, env=env, lease=held, daemon=not leads_group,
-                share=placed is not None)
+                share=placed is not None, log_id=self.actor_id)
         finally:
             if lease is not None:
                 lease.release()  # a no-op once the child holds it
@@ -599,13 +664,39 @@ class ProcessActor:
             with self._send_lock:
                 self._calls.send_bytes(msg)
         except OSError:  # the pipe is closed: the process is going
-            self._proc.join(KILL_GRACE_S)
             link.mark_dead()
         return h
 
+    def stacks(self) -> PendingResult:
+        """Every thread's stack in the actor's process, as text: answered by
+        its reader thread, so a call running there (even with
+        ``max_concurrency=1``) does not hold it up."""
+        with self._send_lock:
+            call_id = self._next_id
+            self._next_id += 1
+        h = PendingResult(self, call_id, "__stacks__")
+        link = self._link
+        with link.lock:
+            dead = link.dead
+            if dead is None:
+                link.pending[call_id] = h
+        if dead is not None:
+            h._set(False, ActorDiedError(f"{dead} before its stacks were dumped"))
+        else:
+            self._control(("stacks", call_id))
+        return h
+
+    def bind(self, method: str, *args, **kwargs):
+        """A DAG node for ``method(*args, **kwargs)`` on this actor, whose
+        arguments may be other nodes (``ray_tpu_torch.dag``)."""
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+
+        return ClassMethodNode(self, method, args, kwargs)
+
     def _control(self, msg: tuple) -> None:
-        """A stream's acknowledgement or cancellation; lost if the process
-        is gone."""
+        """A stream's acknowledgement or cancellation, or a stack dump's
+        request, which the child's reader thread answers; lost if the
+        process is gone."""
         data = pickle.dumps(msg)
         try:
             with self._send_lock:
@@ -664,9 +755,18 @@ def wait(handles: list, num_returns: int = 1,
          timeout: Optional[float] = None) -> tuple[list, list]:
     """Wait until ``num_returns`` of ``handles`` are done (a value or an
     error), or ``timeout`` seconds pass. Returns (done, not done), each in
-    the order given. Safe from any thread."""
+    the order given. Safe from any thread. A compiled DAG's results are
+    read here, by the caller, in the order they were submitted."""
     deadline = None if timeout is None else time.monotonic() + timeout
     num_returns = min(num_returns, len(handles))
+    for h in handles:
+        if sum(x.done for x in handles) >= num_returns:
+            break
+        if not h.done and hasattr(h, "_drain"):
+            try:
+                h._drain(None if deadline is None else max(0.0, deadline - time.monotonic()))
+            except TimeoutError:
+                break
     with _CHANGED:
         while sum(h.done for h in handles) < num_returns:
             left = None if deadline is None else deadline - time.monotonic()
@@ -679,9 +779,9 @@ def wait(handles: list, num_returns: int = 1,
 
 
 def get(handle, timeout: float = CALL_TIMEOUT_S):
-    """The result of one pending call, or a list's results in order; raises
-    the call's ``ActorError``, or ``TimeoutError`` after ``timeout``
-    seconds."""
+    """The result of one pending call (or any ``Result``: a DAG's), or a
+    list's results in order; raises the call's ``ActorError`` (a DAG node's
+    own error), or ``TimeoutError`` after ``timeout`` seconds."""
     if isinstance(handle, (list, tuple)):
         deadline = None if timeout is None else time.monotonic() + timeout
         return [get(h, None if deadline is None else max(0.0, deadline - time.monotonic()))

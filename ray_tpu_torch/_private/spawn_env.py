@@ -7,10 +7,11 @@ thread count from the environment it starts with, before any import in it
 can initialise CUDA or size an OpenMP pool, so the parent sets them around
 ``Process.start`` (``environ``). Their cards and CPU slots are leased from
 the host's card ledger (``_private/cards.py``) and held by the child
-(``start_process``). A process that spawns processes of its own and must
-not be outlived by them (a Tune trial, ``tune/tuner.py``) leads a process
-group (``lead_process_group``), which its parent ends whole, leases
-included (``end_process_group``).
+(``start_process``), and their output goes to the session's log files
+(``_private/log_capture.py``). A process that spawns processes of its own
+and must not be outlived by them (a Tune trial, ``tune/tuner.py``) leads a
+process group (``lead_process_group``), which its parent ends whole,
+leases included (``end_process_group``).
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ import os
 import signal
 import threading
 import time
+import uuid
 from contextlib import contextmanager, suppress
 from typing import Optional
 
+from ray_tpu_torch._private import log_capture
 from ray_tpu_torch._private.cards import CardLedger, Lease, default_ledger
 from ray_tpu_torch.accelerator import GPUAcceleratorManager
 
@@ -72,14 +75,21 @@ def assign_cards(n: int, per: float, what: str, *, cpu: float = 0.0,
 
 
 def start_process(ctx, target, args: tuple, *, name: str, env: dict,
-                  lease: Optional[Lease] = None, daemon: bool = False, share: bool = False):
+                  lease: Optional[Lease] = None, daemon: bool = False, share: bool = False,
+                  log_id: Optional[str] = None):
     """Spawn ``target(*args)`` (a ``spawn`` context's process) with ``env``
-    set around its start. With a ``lease``, the child receives its
+    set around its start. The child's stdout and stderr go to files
+    ``log_id`` (default: a new id) of the session log directory
+    (``_private/log_capture.py``). With a ``lease``, the child receives its
     descriptor and holds it for its life: the parent's copy is closed once
     the child has started (``Lease.bind``), so the lease ends with the
     child, however it ends. With ``share`` the parent keeps its copy too
     (a placement group's bundle): the lease ends with the last holder, or
     when the parent releases it."""
+    log_dir = log_capture.session_log_dir()
+    env = {**env, log_capture.LOG_DIR_ENV: log_dir}
+    args = (log_dir, log_id or uuid.uuid4().hex, target, *args)
+    target = _run_logged
     if lease is not None:
         args = (lease.inheritable(), target, *args)
         target = _run_holding
@@ -89,6 +99,12 @@ def start_process(ctx, target, args: tuple, *, name: str, env: dict,
     if lease is not None and not share:
         lease.bind(p.pid)
     return p
+
+
+def _run_logged(log_dir: str, log_id: str, target, *args):
+    """A child's entry: its output to its log files, then ``target(*args)``."""
+    log_capture.redirect(log_dir, log_id)
+    return target(*args)
 
 
 def _run_holding(held, target, *args):

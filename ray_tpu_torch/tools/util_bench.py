@@ -306,26 +306,33 @@ def expected_texts(llm_config, prompts: list, sampling: dict, device=None) -> li
     return want
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def rehearsal_config(cpu: bool) -> tuple:
+    """(LLM config, sampling, 32 prompts, the card's nvidia-smi line) of a
+    tool run alone: the batch phase's engine on the card, or a tiny model
+    with 4 tokens a prompt on the CPU."""
     from ray_tpu_torch.llm import EngineConfig, LLMConfig, ModelConfig
     from ray_tpu_torch.tools.data_bench import card_llm_config
     from ray_tpu_torch.tools.decode_profile import card
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cpu", action="store_true", help="CPU bundles, a tiny model")
-    args = ap.parse_args(argv)
-    device = "cpu" if args.cpu else None
-    smi = "cpu (rehearsal)" if args.cpu else card()
-    if args.cpu:
+    if cpu:
         llm = LLMConfig(model=ModelConfig(model_id="tiny", tokenizer="byte", seed=0),
                         engine=EngineConfig(max_num_seqs=16, max_seq_len=128,
                                             prefill_buckets=(32, 64, 128), dtype="float32"))
     else:
         llm = card_llm_config()
-    sampling = {"max_tokens": 32 if not args.cpu else 4, "temperature": 0.0, "ignore_eos": True}
+    sampling = {"max_tokens": 32 if not cpu else 4, "temperature": 0.0, "ignore_eos": True}
     prompts = [f"Row {i:02d}: summarise offline batch inference on a card." for i in range(32)]
+    return llm, sampling, prompts, "cpu (rehearsal)" if cpu else card()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu", action="store_true", help="CPU bundles, a tiny model")
+    args = ap.parse_args(argv)
+    device = "cpu" if args.cpu else None
+    llm, sampling, prompts, smi = rehearsal_config(args.cpu)
     want = expected_texts(llm, prompts, sampling, device)
     if not args.cpu:
         import torch

@@ -9,10 +9,13 @@ cards.py``), the live actors' metrics registries and span rings (asked
 over their pipes), and Serve's proxy. In a port process, each function
 runs in its spawner, over its link (``_private/driver_link.py``).
 
-Functions with no source on one host are not ported: ``list_objects`` (no
-object store), ``drain_node``, ``drain_status``, ``preempt_node``,
-``transfer_stats``, ``recovery_stats``, ``actor_creation_stats`` and the
-log and stack functions (``ROADMAP.md``, "Out by decision").
+The log functions read the driver's session log directory and its ring
+buffer (``_private/log_capture.py``); ``get_worker_stacks`` asks each live
+actor's reader thread for its threads' stacks. Functions with no source on
+one host are not ported: ``list_objects`` (no object store),
+``drain_node``, ``drain_status``, ``preempt_node``, ``transfer_stats``,
+``recovery_stats`` and ``actor_creation_stats`` (``ROADMAP.md``, "Out by
+decision").
 """
 
 from __future__ import annotations
@@ -25,11 +28,12 @@ import threading
 from collections import Counter
 from typing import Optional
 
-from ray_tpu_torch._private import driver_link
+from ray_tpu_torch._private import driver_link, log_capture
 from ray_tpu_torch._private.registry import registry
 from ray_tpu_torch.util import metrics, tracing
 
 PULL_TIMEOUT_S = 10.0  # how long a pull waits for the live actors' replies
+STACKS_TIMEOUT_S = 5.0  # how long a stack dump waits for the live actors' replies
 SPANS_KEPT = 16384  # merged spans the driver keeps, oldest dropped first
 
 _DRIVER_FNS: dict = {}
@@ -198,6 +202,45 @@ def timeline(path: Optional[str] = None) -> list[dict]:
         with open(path, "w") as f:
             json.dump(trace, f)
     return trace
+
+
+@_in_driver
+def list_logs() -> list[dict]:
+    """Every captured process's log files (dead processes too): its id (an
+    actor's is its actor id), pid, name and the bytes of its stdout and
+    stderr."""
+    return log_capture.list_logs()
+
+
+@_in_driver
+def get_log(worker_id_prefix: str, source: str = "out", tail_bytes: int = 65536) -> str:
+    """The last ``tail_bytes`` of a process's captured stdout (``"out"``)
+    or stderr (``"err"``), by a prefix of its id; dead processes too (the
+    files outlive them)."""
+    return log_capture.get_log(worker_id_prefix, source, tail_bytes)
+
+
+@_in_driver
+def tail_cluster_logs(n: int = 1000) -> list[dict]:
+    """The latest ``n`` captured lines across every process (the ring
+    buffer): id, source, line, time, pid, name."""
+    return log_capture.tail(n)
+
+
+@_in_driver
+def get_worker_stacks(worker_id: Optional[str] = None) -> dict:
+    """Every thread's stack in each live actor's process (or those whose id
+    starts with ``worker_id``): {actor id: text}. Each is answered by the
+    actor's reader thread, so an actor busy in a method answers too; one
+    that does not within ``STACKS_TIMEOUT_S`` reads
+    ``"<no response within 5 s>"``."""
+    from ray_tpu_torch._private.process_actor import wait
+
+    asks = [(h, h.stacks()) for h in registry().live_handles()
+            if worker_id is None or h.actor_id.startswith(worker_id)]
+    wait([r for _, r in asks], num_returns=len(asks), timeout=STACKS_TIMEOUT_S)
+    return {h.actor_id: (r._value if r.done and r._ok else
+                         f"<no response within {STACKS_TIMEOUT_S:g} s>") for h, r in asks}
 
 
 def _proxy():

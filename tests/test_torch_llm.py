@@ -299,6 +299,11 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     for name in ("openai_api.py", "builders.py"):
         assert REPO / "ray_tpu_torch" / "llm" / name in files
     assert REPO / "ray_tpu_torch" / "tools" / "serve_bench.py" in files
+    for name in ("dag/dag_node.py", "dag/compiled_dag.py", "experimental/channel.py",
+                 "experimental/internal_kv.py", "job_submission/job_manager.py",
+                 "dashboard/app.py", "_private/log_capture.py", "tools/dag_bench.py",
+                 "tools/jobs_bench.py"):
+        assert REPO / "ray_tpu_torch" / name in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
