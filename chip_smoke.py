@@ -283,6 +283,23 @@ Phases, one JSON line each; any failing phase exits non-zero:
                 with FakeNodeProvider on a ledger of its own (drained, exit
                 0; no match, exit 1), status --ledger showing it drained, no
                 node left. Each command's seconds.
+ 15k. core    — the core API (tools/core_bench.py): ray_tpu_torch.init(num_cpus=4)
+                in process mode; put of the batch phase's 32 prompts; two
+                @remote(num_gpus=0.5) tasks, each in a worker leasing half of
+                the card from the ledger and building the batch phase's
+                engine, each generating its block of 16 prompts (greedy, 32
+                tokens); a num_gpus=1 task queued behind the halves and
+                cancelled; wait(num_returns=1), get of both, a CPU task
+                chained on both refs counting their tokens; a max_retries=1
+                task whose worker dies once; a raising task; shutdown().
+                Limits: 32/32 texts equal to the batch phase's in order,
+                RMSNorm launches in each worker since its engine was built
+                equal to its engine's count, every decode step a graph
+                replay, TaskCancelledError, the retry's return, TaskError
+                that is its cause, the chained count equal to the tokens
+                generated, no lease, worker or segment left after
+                shutdown(). Each worker's start-up and build, tok/s, a warm
+                CPU task's round trip and a 4 MiB array's put / get.
  16. parallel — (a) ring attention's per-block arithmetic at full width in
                 one process: q/k/v [4, 2048, 16, 128] bf16, causal, cut
                 into 4 sequence shards of 512; for each simulated rank the
@@ -3020,6 +3037,44 @@ def phase_cli(torch, card: str) -> dict:
     return out
 
 
+def phase_core(torch, card: str, batch: dict) -> dict:
+    """The core API (ray_tpu_torch.tools.core_bench.core_part), through the
+    entry points a user calls: init, put, two @remote(num_gpus=0.5) tasks
+    building the batch phase's engine (llama3.2-3b at full width and depth,
+    seeded bf16 weights, the fused RMSNorm, 16 slots x 1024, prefix caching
+    off) on the half card each worker leases, generating the batch phase's
+    32 prompts in two blocks of 16 (greedy, 32 tokens); a whole-card task
+    queued behind them and cancelled; wait, get, a chained CPU task, a
+    retried and a raising task; shutdown. Limits: texts equal to the batch
+    phase's, every decode step a graph replay, each worker's RMSNorm
+    launches since its engine was built equal to its engine's count, the
+    chained count equal to the tokens generated, nothing left after
+    shutdown."""
+    from ray_tpu_torch.tools import core_bench
+    from ray_tpu_torch.tools import data_bench as db
+
+    cfg = _serve_config({}, enable_prefix_caching=False)
+    if db.card_llm_config() != cfg:
+        raise AssertionError("core: data_bench's engine is not the batch phase's")
+    gc_collect(torch)  # the parent holds no model while the workers run
+    part = core_bench.core_part(cfg, _batch_prompts(), BATCH_SAMPLING, batch["texts"])
+    emit({"phase": "core", "card": card, **part})
+    if not part["ok"]:
+        raise AssertionError(f"core: {part['failed_checks']}")
+    out = {"phase": "core", "card": card, "model": "llama3.2-3b",
+           "out_tok_per_s": part["out_tok_per_s"], "submit_to_done_s": part["submit_to_done_s"],
+           "worker_startup_s": [w["startup_s"] for w in part["workers"]],
+           "engine_build_s": [w["engine_build_s"] for w in part["workers"]],
+           "worker_peak_memory_gb": [w["peak_memory_gb"] for w in part["workers"]],
+           "round_trip_ms_median": part["round_trip_ms_median"],
+           "put_4mib_ms_median": part["put_4mib_ms_median"],
+           "get_4mib_ms_median": part["get_4mib_ms_median"],
+           "texts_equal_batch_phase": part["texts_equal"], "chained_count": part["chained_count"],
+           "launches": part["launches"]}
+    emit(out)
+    return out
+
+
 def emit_holders(phase: str) -> None:
     """The card ledger's live leases and nodes after a phase that spawns
     processes: a rank or actor that outlived its phase shows here, under its
@@ -3059,7 +3114,7 @@ def main() -> int:
     timings = {}
 
     spawning = {"gang_serve", "gang_lora", "train_serve", "elastic", "tune", "data", "serve_app",
-                "openai_app", "util", "dag", "jobs", "autoscaler", "cli", "parallel",
+                "openai_app", "util", "dag", "jobs", "autoscaler", "cli", "core", "parallel",
                 "rllib_remote"}
 
     def timed_phase(name, fn):
@@ -3102,6 +3157,7 @@ def main() -> int:
     jobs = timed_phase("jobs", lambda torch, card: phase_jobs(torch, card, batch))
     autoscaler = timed_phase("autoscaler", lambda torch, card: phase_autoscaler(torch, card, batch))
     timed_phase("cli", phase_cli)
+    core = timed_phase("core", lambda torch, card: phase_core(torch, card, batch))
     gc_collect(torch)
     parallel = timed_phase("parallel", phase_parallel)
     rllib = timed_phase("rllib", phase_rllib)
@@ -3168,6 +3224,8 @@ def main() -> int:
                              "jobs": jobs["launches"]["rmsnorm"],
                              # the autoscaler phase's engine actor, placed on the new node's card
                              "autoscaler": autoscaler["launches"]["rmsnorm"],
+                             # the core phase's two card-share task workers, their own counters
+                             "core": core["launches"]["rmsnorm"],
                              # the gang's rank process, its own counters
                              "gang_lora": gang_lora["rmsnorm_launches"],
                              "train_serve": train_serve["rmsnorm_launches"],

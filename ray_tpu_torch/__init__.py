@@ -8,16 +8,61 @@ runs as a Pallas TPU kernel is a CUDA kernel written for Hopper (sources in
 
 The package imports nothing from ``ray_tpu``: what it needs of the
 framework-neutral modules it keeps as its own copies.
+
+The core API of ``ray_tpu/__init__.py`` (``init``, ``remote``, ``get``,
+``put``, ``wait``, ``cancel``, ``ObjectRef``, the exceptions,
+``cluster_resources``, ...) is exported lazily (a module ``__getattr__``),
+so that ``import ray_tpu_torch`` imports no torch:
+
+    import ray_tpu_torch
+    ray_tpu_torch.init()
+
+    @ray_tpu_torch.remote
+    def f(x):
+        return x * 2
+
+    ray_tpu_torch.get(f.remote(21))  # 42
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import TYPE_CHECKING, Optional, Union
 
 if TYPE_CHECKING:
     import torch
 
-__all__ = ["resolve_device"]
+_LAZY = {
+    **dict.fromkeys(("init", "shutdown", "is_initialized", "get", "put", "wait", "cancel",
+                     "get_runtime_context", "remote"), "ray_tpu_torch._private.worker"),
+    "RemoteFunction": "ray_tpu_torch.remote_function",
+    "ObjectRef": "ray_tpu_torch.object_ref",
+    **dict.fromkeys(("RayTpuError", "TaskError", "ObjectLostError", "GetTimeoutError",
+                     "WorkerCrashedError", "TaskCancelledError",
+                     "PlacementGroupSchedulingError"), "ray_tpu_torch.exceptions"),
+    **dict.fromkeys(("ActorError", "ActorDiedError"), "ray_tpu_torch._private.process_actor"),
+    **dict.fromkeys(("placement_group", "remove_placement_group", "PlacementGroup"),
+                    "ray_tpu_torch.util.placement_group"),
+    **dict.fromkeys(("cluster_resources", "available_resources", "nodes"),
+                    "ray_tpu_torch._private.state"),
+}
+
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__", *_LAZY]
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
 
 
 def resolve_device(device: Optional[Union[str, "torch.device"]] = None) -> "torch.device":

@@ -13,7 +13,9 @@ their environment (``child_env``). A child reaches its spawner through it
 - the event channels (``util/pubsub.py``);
 - the state API and placement-group queries (``util/state/api.py``,
   ``util/placement_group.py``);
-- the internal KV table (``experimental/internal_kv.py``).
+- the internal KV table (``experimental/internal_kv.py``);
+- the core API (``_private/worker.py``): a worker's tasks, objects and
+  waits, which live in the driver.
 
 The spawner answers each connection on a thread of its own, one request at
 a time; a child opens one connection a thread, so a long poll holds only
@@ -86,8 +88,14 @@ def _kv(op: str, namespace: str, arg):
     return driver_op(op, namespace, arg)
 
 
+def _core(op: str, args: tuple):
+    from ray_tpu_torch._private.worker import driver_op
+
+    return driver_op(op, args)
+
+
 _OPS = {"actor_call": _actor_call, "actor_kill": _actor_kill, "publish": _publish,
-        "poll": _poll, "group": _group, "state": _state, "kv": _kv}
+        "poll": _poll, "group": _group, "state": _state, "kv": _kv, "core": _core}
 
 
 class _Server:

@@ -553,13 +553,17 @@ class ProcessActor:
     process that holds nothing; ``max_concurrency`` the calls it runs at
     once (1: one at a time, in order); ``leads_group`` lets it spawn
     processes of its own, which end with it; ``scheduling_strategy``
-    places it (a placement group's bundle, in place of a lease)."""
+    places it (a placement group's bundle, in place of a lease); ``kind``
+    names it in the registry (``"worker"``: a core API task worker, which
+    ``state.list_actors`` leaves out and whose calls are not recorded, the
+    core API recording its tasks' own events)."""
 
     def __init__(self, cls, args: tuple = (), kwargs: Optional[dict] = None, *,
                  lease: Optional[Lease] = None, name: Optional[str] = None,
                  max_concurrency: int = 1, leads_group: bool = False,
-                 scheduling_strategy=None):
+                 scheduling_strategy=None, kind: str = "actor"):
         self.name = name or cls.__name__
+        self._kind = kind
         self.actor_id = uuid.uuid4().hex
         self._class_name = getattr(cls, "__name__", str(cls))
         try:
@@ -591,7 +595,7 @@ class ProcessActor:
         self.ready = PendingResult(self, 0, "__init__")
         self._link.pending[0] = self.ready
         reg = registry()
-        reg.started(self.actor_id, kind="actor", name=self.name, class_name=self._class_name,
+        reg.started(self.actor_id, kind=kind, name=self.name, class_name=self._class_name,
                     pid=self._proc.pid, cards=cards, cpu=held.cpu if held is not None else 0.0,
                     state="PENDING", handle=self,
                     placement_group_id=placed[0].id if placed else None,
@@ -633,6 +637,8 @@ class ProcessActor:
     def _track(self, call_id: int, name: str, h) -> None:
         """The call's DISPATCHED event now, and its end's when ``h`` ends
         (a stream's sink carries no verdict: FINISHED)."""
+        if self._kind == "worker":  # a task worker: the core API records its tasks
+            return
         reg, task_id = registry(), f"{self.actor_id}:{call_id}"
         reg.task_event(task_id, name, "DISPATCHED", worker_id=self.actor_id)
         h.add_done_callback(lambda r: reg.task_event(

@@ -15,10 +15,12 @@ compiles it (``compiled_dag.py``).
   reference's refs. An actor node's call runs on the hosted object in the
   actor's process; a node whose argument failed fails with the same error
   without being called.
-- *Function nodes.* The port has no remote functions (the core runtime is
-  out by decision): a ``FunctionNode`` wraps a module-level function and
-  runs it on a thread of the driver, as the port's Data runs its stateless
-  task stages (``data/execution.py``).
+- *Function nodes.* ``RemoteFunction.bind`` (``ray_tpu_torch.remote``)
+  makes a ``FunctionNode`` that runs the function as a task of the core
+  API (``_private/worker.py``), as the reference's does. A
+  ``FunctionNode`` built directly on a module-level function runs it on a
+  thread of the driver, as the port's Data runs its stateless task stages
+  (``data/execution.py``).
 - *Errors* are raised by ``get`` as the node raised them (a ``ValueError``
   as a ``ValueError``), as the reference's ``get`` raises an error that is
   also an instance of its cause; a process that died raises
@@ -27,6 +29,7 @@ compiles it (``compiled_dag.py``).
 
 from __future__ import annotations
 
+import functools
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
@@ -251,7 +254,8 @@ class _CallNode(DAGNode):
 
 
 class FunctionNode(_CallNode):
-    """A bound call of a module-level function, run on a driver thread."""
+    """A bound call of a module-level function, run on a driver thread, or
+    of a ``RemoteFunction``, run as a core API task."""
 
     def __init__(self, fn: Callable, args: tuple = (), kwargs: Optional[dict] = None):
         super().__init__(args, kwargs or {})
@@ -259,9 +263,18 @@ class FunctionNode(_CallNode):
         self.name = getattr(fn, "__name__", repr(fn))
 
     def _submit(self, out, args, kwargs):
+        from ray_tpu_torch.remote_function import RemoteFunction
+
+        if isinstance(self._fn, RemoteFunction):  # a task now, its result read on a thread
+            from ray_tpu_torch._private.worker import get
+
+            call = functools.partial(get, self._fn.remote(*args, **kwargs))
+        else:
+            call = functools.partial(self._fn, *args, **kwargs)
+
         def run():
             try:
-                out._set(True, self._fn(*args, **kwargs))
+                out._set(True, call())
             except Exception as e:  # noqa: BLE001 — the node's error, raised by get
                 out._set(False, e)
 

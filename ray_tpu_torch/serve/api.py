@@ -25,6 +25,10 @@ from ray_tpu_torch.serve.handle import DeploymentHandle, _HandleMarker
 
 _controller = None
 _controller_lock = threading.Lock()
+# held for a whole shutdown, so a second caller returns only once Serve is
+# down: the CLI's ``serve deploy`` exits after its own call, and must not
+# end while a ``serve shutdown`` from the driver link is still running
+_shutdown_lock = threading.RLock()
 
 
 def _get_controller(create: bool = False):
@@ -138,14 +142,16 @@ def get_app_handle(app_name: str = "default") -> DeploymentHandle:
 
 def shutdown():
     """Stop the proxies (draining the HTTP one), every replica (their
-    leases, and what they spawned, end with them) and the controller."""
+    leases, and what they spawned, end with them) and the controller;
+    returns once they are stopped, also when another thread began it."""
     global _controller
     from ray_tpu_torch.serve.grpc_proxy import _stop_grpc_proxy
     from ray_tpu_torch.serve.proxy import _stop_proxy
 
-    _stop_proxy()
-    _stop_grpc_proxy()
-    with _controller_lock:
-        controller, _controller = _controller, None
-    if controller is not None:
-        controller.shutdown()
+    with _shutdown_lock:
+        _stop_proxy()
+        _stop_grpc_proxy()
+        with _controller_lock:
+            controller, _controller = _controller, None
+        if controller is not None:
+            controller.shutdown()

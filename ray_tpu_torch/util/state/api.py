@@ -206,12 +206,18 @@ def list_placement_groups(limit: int = 1000) -> list[dict]:
 
 @_in_driver
 def list_tasks(limit: int = 1000) -> list[dict]:
-    """The calls sent to a live actor and not yet answered (``RUNNING``;
-    the port does not tell a call queued in the actor from one running)."""
+    """The core API's queued and running tasks (``PENDING_ARGS_AVAIL``,
+    ``PENDING_SCHEDULING``, ``RUNNING``, as the reference lists them), then
+    the calls sent to a live actor and not yet answered (``RUNNING``; the
+    port does not tell a call queued in the actor from one running)."""
     names = {e["task_id"]: e["name"] for e in list(registry().task_events)
              if e["event"] == "DISPATCHED"}
-    out = []
+    core = sys.modules.get("ray_tpu_torch._private.worker")
+    driver = None if core is None else core.driver()
+    out = [] if driver is None else driver.scheduler.live()
     for h in registry().live_handles():
+        if h._kind == "worker":  # its task is listed above
+            continue
         with h._link.lock:
             pending = list(h._link.pending.items())
         out += [{"task_id": f"{h.actor_id}:{call_id}",
@@ -258,12 +264,12 @@ def cluster_spans() -> dict:
 
 @_in_driver
 def timeline(path: Optional[str] = None) -> list[dict]:
-    """Chrome-trace export: each actor call (its dispatch to its end) and
-    every merged span, with parent edges in ``args``."""
+    """Chrome-trace export: each actor call and core API task (its dispatch
+    or start to its end) and every merged span, with parent edges in ``args``."""
     starts: dict[str, dict] = {}
     trace: list[dict] = []
     for e in list(registry().task_events):
-        if e["event"] == "DISPATCHED":
+        if e["event"] in ("DISPATCHED", "RUNNING"):
             starts.setdefault(e["task_id"], e)
         elif e["event"] in ("FINISHED", "FAILED"):
             s = starts.pop(e["task_id"], None)

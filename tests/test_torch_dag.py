@@ -111,6 +111,34 @@ def test_function_dag(ray_start_thread):
         assert get(dag.execute(x)) == ray_tpu.get(jdag.execute(x)) == 2 * x + 3
 
 
+def test_remote_function_bind_runs_core_api_tasks(ray_start_thread, tmp_path):
+    """``RemoteFunction.bind`` through both packages' ``remote``: each node
+    a task of the core API (``ray_tpu/remote_function.py:97-101``)."""
+    import ray_tpu
+    import ray_tpu_torch
+    from ray_tpu.dag import InputNode as JInputNode
+    from ray_tpu_torch._private.cards import CardLedger, use_ledger
+    from ray_tpu_torch.util import state
+
+    jmul, jadd = ray_tpu.remote(mul), ray_tpu.remote(add)
+    with JInputNode() as jinp:
+        jdag = jadd.bind(jmul.bind(jinp, 2), 3)
+    with use_ledger(CardLedger(str(tmp_path / "ledger"), cards=[], cpus=8)):
+        ray_tpu_torch.init(num_cpus=4, mode="thread")
+        try:
+            pmul, padd = ray_tpu_torch.remote(mul), ray_tpu_torch.remote(add)
+            with InputNode() as inp:
+                dag = padd.bind(pmul.bind(inp, 2), 3)
+            before = state.summarize_tasks()
+            for x in (5, 10):
+                assert get(dag.execute(x)) == ray_tpu.get(jdag.execute(x)) == 2 * x + 3
+            ran = state.summarize_tasks()
+            assert [ran[n]["FINISHED"] - before.get(n, {}).get("FINISHED", 0)
+                    for n in ("mul", "add")] == [2, 2]
+        finally:
+            ray_tpu_torch.shutdown()
+
+
 def test_actor_dag_pipeline(ray_start_thread, actors):
     import ray_tpu
     from ray_tpu.dag import InputNode as JInputNode

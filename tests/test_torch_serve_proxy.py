@@ -554,7 +554,11 @@ def test_latency_feedback_routing_drains_slow_replica(port, jax_teardown):
     _ready(port, "MaybeSlow", 2)
     out = {}
     for side, h in (("jax", jh), ("port", ph)):
-        warm = collections.Counter(h.remote(None).result(timeout_s=60) for _ in range(8))
+        # 8 warm-up calls, and more until each replica has answered once:
+        # with no latency estimate yet the pick between them is random
+        warm = collections.Counter()
+        while (len(warm) < 2 or sum(warm.values()) < 8) and sum(warm.values()) < 64:
+            warm[h.remote(None).result(timeout_s=60)] += 1
         assert warm["slow"] >= 1 and warm["fast"] >= 1, (side, warm)
         slow_name = max(h._latency, key=h._latency.get)
         assert h._latency[slow_name] > 0.3  # the 0.6 s sleep dominates its estimate

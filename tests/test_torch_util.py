@@ -283,7 +283,7 @@ def test_killed_actor_keeps_its_bundle_and_removal_ends_the_rest(ledger):
 
 def test_strategies_on_one_host(ledger):
     from ray_tpu_torch._private.registry import registry
-    from ray_tpu_torch.util import placement_group
+    from ray_tpu_torch.util import placement_group, remove_placement_group
     from ray_tpu_torch.util.scheduling_strategies import (NodeAffinitySchedulingStrategy,
                                                           PlacementGroupSchedulingStrategy,
                                                           SpreadSchedulingStrategy, resolve)
@@ -295,14 +295,18 @@ def test_strategies_on_one_host(ledger):
     with pytest.raises(ValueError, match="not this host's node"):
         resolve(NodeAffinitySchedulingStrategy("ab" * 14), None)
     pending = placement_group([{"CPU": 100}])
-    with pytest.raises(RuntimeError, match="pending"):
-        resolve(PlacementGroupSchedulingStrategy(pending, 0), None)
-    held, = ledger.acquire([{"CPU": 1}], "a lease of its own")
     try:
-        with pytest.raises(ValueError, match="no lease of its own"):
-            resolve(PlacementGroupSchedulingStrategy(pending, 0), held)
+        with pytest.raises(RuntimeError, match="pending"):
+            resolve(PlacementGroupSchedulingStrategy(pending, 0), None)
+        held, = ledger.acquire([{"CPU": 1}], "a lease of its own")
+        try:
+            with pytest.raises(ValueError, match="no lease of its own"):
+                resolve(PlacementGroupSchedulingStrategy(pending, 0), held)
+        finally:
+            held.release()
     finally:
-        held.release()
+        # a group left PENDING is demand the autoscaler's tests would read
+        remove_placement_group(pending)
 
 
 def test_a_queue_reaches_its_host_only_through_its_creator(ledger):
